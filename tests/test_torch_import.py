@@ -1,0 +1,109 @@
+"""The torch port stands alone: it imports with `jax` blocked, no module
+of it imports jax, its relation generator writes the reference
+generator's bytes, and (on a machine with a card) its CUDA kernel agrees
+with the plain PyTorch version."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from sigmod2018_tpu_torch.tools.workload import write_relations
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "sigmod2018_tpu_torch"
+
+_BLOCKED_IMPORT = """
+import importlib, pkgutil, sys
+
+class _NoJax:
+    def find_spec(self, name, path=None, target=None):
+        if name == "jax" or name.startswith(("jax.", "jaxlib")):
+            raise ImportError("jax is blocked in this process")
+
+sys.meta_path.insert(0, _NoJax())
+import sigmod2018_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
+         if not m.name.endswith("__main__")]
+for name in names:
+    importlib.import_module(name)
+assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
+print(len(names))
+"""
+
+
+def test_imports_with_jax_blocked():
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 20  # every module was imported
+
+
+def test_no_module_imports_jax():
+    for path in PKG.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            assert not any(n.split(".")[0] in ("jax", "jaxlib", "sigmod2018_tpu")
+                           for n in names), (path, names)
+
+
+@pytest.mark.parametrize("profile,seed", [("uniform", 7), ("bigdom", 11)])
+def test_generator_matches_reference_tool(tmp_path, profile, seed):
+    """The workloads/big and workloads/bigdom parameters at 5,000 rows:
+    tools/gen_workload.py and the port write identical relation files."""
+    args = ["--profile", profile, "--rows", "5000", "--relations", "4",
+            "--keyspace", "1048576", "--seed", str(seed)]
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "tools/gen_workload.py", str(tmp_path / "ref"),
+         *args, "--queries", "1", "--batch", "1", "--cap", "30000000"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    paths = write_relations(tmp_path / "port", profile, 5000, 4, 1048576,
+                            seed)
+    assert [p.name for p in paths] == ["r0", "r1", "r2", "r3"]
+    for p in paths:
+        assert p.read_bytes() == (tmp_path / "ref" / p.name).read_bytes(), p
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain():
+    """The hand-written kernel against its plain twin on the card, at
+    shapes that cover a staged window, a hot key past the window, live
+    2^64-1 keys, device-side counts and empty sides."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run python3 chip_smoke.py there)")
+    from sigmod2018_tpu_torch.ops import ms_join
+    from sigmod2018_tpu_torch.ops.sort_join import join_build
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    P = 1 << 16
+    for dom, hot in ((1 << 12, 0), (1 << 62, 0), (1 << 12, 20000)):
+        keys = [torch.randint(0, dom, (P,), device=dev, generator=gen)
+                for _ in range(2)]
+        if hot:
+            keys[0][:hot] = -1
+            keys[1][:hot] = -1
+        for nb, npr in ((P - 5, P - 7), (0, P), (P, 0)):
+            kb, _ = join_build(keys[0], nb)
+            kp, _ = join_build(keys[1], npr)
+            before = ms_join.LAUNCHES
+            got = ms_join.staircase_counts(kb, nb, kp, npr)
+            got_t = ms_join.staircase_counts(
+                kb, torch.tensor(nb, device=dev), kp, npr)
+            want = ms_join.staircase_counts_plain(kb, nb, kp, npr)
+            assert ms_join.LAUNCHES == before + 2
+            for g in (got, got_t):
+                assert torch.equal(g[0], want[0])
+                m = want[0] > 0
+                assert torch.equal(g[1][m], want[1][m])
