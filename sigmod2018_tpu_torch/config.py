@@ -20,8 +20,9 @@ class EngineConfig:
     platform: str = "cuda"
 
     # Fused-join member: "auto" (the staircase member at scale, the
-    # sort/table members below ops.radix_join.RADIX_MIN_ROWS), or "sort"
-    # / "ms" to force one.  "radix" and "qd" are not ported yet and raise.
+    # sort/table members below ops.radix_join.RADIX_MIN_ROWS), or "sort",
+    # "ms", "radix" or "qd" (the radix and equi-depth members, with the
+    # slot-fill and dual-count kernels) to force one.
     join_algo: str = "auto"
 
     # Domain-rank key tables for base join columns whose exact max u

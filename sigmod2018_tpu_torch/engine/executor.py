@@ -31,6 +31,7 @@ import torch
 from .. import ops
 from ..config import DEFAULT_CONFIG, EngineConfig
 from ..frontend.parser import FilterPred, JoinPred, Query
+from ..ops import radix_join
 from ..ops.u64 import MASK64
 from ..planner import plan_joins
 from ..storage.catalog import Catalog
@@ -132,6 +133,8 @@ class TorchEngine:
         self._sorted_columns: Dict[Tuple[int, int], tuple] = {}
         self._key_tables: Dict[Tuple[int, int], Optional[torch.Tensor]] = {}
         self._prefix_tables: Dict[Tuple[int, int, int], torch.Tensor] = {}
+        self._radix_keys: Dict[Tuple[int, int], Optional[tuple]] = {}
+        self._radix_vals: Dict[Tuple[int, int, int], torch.Tensor] = {}
 
     # ---- storage ---------------------------------------------------------
 
@@ -199,17 +202,58 @@ class TorchEngine:
             self._prefix_tables[key] = hit
         return hit
 
+    def device_radix_keys(self, rid: int, cid: int):
+        """Prep-time radix artifacts of a base column, or None when gated
+        off: (bits, krot_sorted, perm, starts, cnts, max_occ) from
+        ops.radix_prep_keys at bits = plan_bits(P).  Built only where the
+        radix member consumes them: forced radix, padded size at least
+        RADIX_MIN_ROWS, and no key table.  A fused radix join whose side
+        is this unfiltered column then skips that side's sort."""
+        key = (rid, cid)
+        if key in self._radix_keys:
+            return self._radix_keys[key]
+        art = None
+        dev, n = self.device_column(rid, cid)
+        P = dev.shape[0]
+        if (radix_join.radix_member_selected(P, P, self.config.join_algo)
+                and P >= radix_join.RADIX_MIN_ROWS
+                and self.device_key_table(rid, cid) is None):
+            bits = radix_join.plan_bits(P)
+            art = (bits,) + tuple(radix_join.radix_prep_keys(dev, n, bits))
+        self._radix_keys[key] = art
+        return art
+
+    def device_radix_val(self, rid: int, key_cid: int, val_cid: int):
+        """A value column pre-sorted in the radix artifact order of
+        `key_cid` (pads ride along; the kernels weight only live slots),
+        or None when that column has no radix artifacts."""
+        art = self.device_radix_keys(rid, key_cid)
+        if art is None:
+            return None
+        key = (rid, key_cid, val_cid)
+        hit = self._radix_vals.get(key)
+        if hit is None:
+            col, _ = self.device_column(rid, val_cid)
+            hit = col.index_select(0, art[2])
+            self._radix_vals[key] = hit
+        return hit
+
     def prefetch(self) -> None:
         """Copy every base column to the device, presort it, build its
         key table and the prefix tables of every (key-table column, value
-        column) pair, ahead of the timed phase.  Columns run in threads:
-        the copies, sorts and NumPy passes release the interpreter lock
-        (a racing duplicate build is benign: equal values)."""
+        column) pair, or under forced radix its radix artifacts and
+        pre-sorted value columns, ahead of the timed phase.  Columns run
+        in threads: the copies, sorts and NumPy passes release the
+        interpreter lock (a racing duplicate build is benign: equal
+        values)."""
         def one_column(rid: int, cid: int, ncols: int) -> None:
             self.device_sorted_column(rid, cid)
             if self.device_key_table(rid, cid) is not None:
                 for vcid in range(ncols):
                     self.device_prefix_table(rid, cid, vcid)
+            elif self.device_radix_keys(rid, cid) is not None:
+                for vcid in range(ncols):
+                    self.device_radix_val(rid, cid, vcid)
 
         work = [(rid, cid, rel.num_columns)
                 for rid, rel in enumerate(self.catalog.relations)
@@ -489,8 +533,11 @@ class TorchEngine:
             presorted_p = self.device_sorted_column(query.relations[pb], pc)
 
         Pb, Pp = keys_b.shape[0], keys_p.shape[0]
-        use_ms = ops.ms_member_selected(Pb, Pp, self.config.join_algo)
-        prefs_mode = table is not None and not use_ms
+        algo = self.config.join_algo
+        # The prefix-table member is probe-only: it takes no build-side
+        # values, which the staircase, radix and qd members need.
+        prefs_mode = (table is not None and algo not in ("radix", "qd")
+                      and not ops.ms_member_selected(Pb, Pp, algo))
 
         brows, prows, prefs = [], [], []
         b_idx, p_idx = {}, {}
@@ -516,11 +563,30 @@ class TorchEngine:
                 return torch.stack(rows)
             return torch.zeros((0, P), dtype=torch.int64, device=self.device)
 
+        def radix_side(binding: int, column: int, comp, build: bool):
+            """(artifacts, pre-sorted value stack) of an unfiltered base
+            side whose radix artifacts match this join's bits, else
+            (None, None)."""
+            if comp is not None:
+                return None, None
+            rel = query.relations[binding]
+            art = self.device_radix_keys(rel, column)
+            if art is None or art[0] != radix_join.plan_bits(Pb):
+                return None, None
+            rows = [self.device_radix_val(rel, column, c)
+                    for b, c in query.views
+                    if (side_of(b) == build_left) == build]
+            return art[1:2] + art[3:], stack(rows, art[1].shape[0])
+
+        radix_pre_b, radix_vals_b = radix_side(bb, bc, comp_b, True)
+        radix_pre_p, radix_vals_p = radix_side(pb, pc, comp_p, False)
         count, sums_b, sums_p = ops.fused_join_auto(
             keys_b, None if prefs_mode else stack(brows, Pb), n_b,
             keys_p, stack(prows, Pp), n_p,
-            algo=self.config.join_algo, presorted=presorted, table=table,
+            algo=algo, presorted=presorted, table=table,
             table_prefs=stack(prefs, Pb + 1) if prefs_mode else None,
+            radix_pre_b=radix_pre_b, radix_vals_b=radix_vals_b,
+            radix_pre_p=radix_pre_p, radix_vals_p=radix_vals_p,
             presorted_p=presorted_p)
         parts = [count.reshape(1)]
         for vi in range(len(query.views)):

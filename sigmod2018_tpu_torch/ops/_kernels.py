@@ -25,8 +25,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _libs and _name_locks
 _libs: dict = {}
+_name_locks: dict = {}
 
 
 def _nvcc() -> str:
@@ -63,10 +64,35 @@ def _build(name: str) -> Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built on first use."""
+    """The loaded library of csrc/<name>.cu, built on first use.  Builds
+    of different kernels may run at once (one lock per name)."""
     with _lock:
         lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
+        with _lock:
+            lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(_build(name)))
-            _libs[name] = lib
+            with _lock:
+                _libs[name] = lib
         return lib
+
+
+def load_all(names) -> dict:
+    """Build and load several kernels with one nvcc each, all started
+    together: {name: seconds until that one was loaded}."""
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+
+    def one(name: str) -> float:
+        load(name)
+        return time.perf_counter() - t0
+
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(one, names)))

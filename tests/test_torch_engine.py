@@ -27,7 +27,7 @@ from sigmod2018_tpu_torch.config import EngineConfig
 from sigmod2018_tpu_torch.engine import executor as texec
 from sigmod2018_tpu_torch.frontend import parser as tparser
 from sigmod2018_tpu_torch.io.repl import run_protocol
-from sigmod2018_tpu_torch.ops import ms_join, radix_join
+from sigmod2018_tpu_torch.ops import ms_join, qd_join, radix_join
 from sigmod2018_tpu_torch.planner import join_order as torder
 from sigmod2018_tpu_torch.planner import stats as tstats
 from sigmod2018_tpu_torch.storage.catalog import Catalog
@@ -99,11 +99,77 @@ def test_engine_staircase_dispatch_matches_jax(catalogs, expected,
     assert calls, "the staircase member never ran"
 
 
-def test_forced_members(catalogs, expected):
+def _spy(monkeypatch, module, name):
+    calls = []
+    real = getattr(module, name)
+    monkeypatch.setattr(module, name,
+                        lambda *a, **k: calls.append(k) or real(*a, **k))
+    return calls
+
+
+def test_forced_members(catalogs, expected, monkeypatch):
     assert _lines(catalogs[0], join_algo="ms") == expected
     assert _lines(catalogs[0], join_algo="sort") == expected
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _lines(catalogs[0], join_algo="radix")
+    # radix and qd, with and without key tables; the lowered threshold
+    # lets forced radix build its prep artifacts for these 4096-row columns
+    monkeypatch.setattr(radix_join, "RADIX_MIN_ROWS", 256)
+    for algo, module, member in (("radix", radix_join, "radix_fused_static"),
+                                 ("qd", qd_join, "qd_fused_static")):
+        for key_table_max in (1 << 22, 0):
+            calls = _spy(monkeypatch, module, member)
+            assert _lines(catalogs[0], join_algo=algo,
+                          key_table_max=key_table_max) == expected
+            assert calls, f"the {algo} member never ran"
+
+
+def test_forced_qd_with_key_tables(catalogs, monkeypatch):
+    """Forced qd on a join whose build side has a key table.  The JAX
+    engine turns the probe-only prefix-table member on there, hands the
+    qd member no build values and answers from its host oracle after an
+    AttributeError (ROADMAP.md Queue 3); the port runs its qd member."""
+    tcat, jcat = catalogs
+    q = "0 1|0.0=1.0|0.1 1.2"
+    eng = JaxEngine(jcat, dataclasses.replace(JaxConfig(), join_algo="qd",
+                                              compile_queries=False))
+    eng.prefetch()
+    want = eng.execute(jparser.parse_query(q))
+    assert want == execute_query_numpy(jparser.parse_query(q), jcat)
+    calls = _spy(monkeypatch, qd_join, "qd_fused_static")
+    teng = texec.TorchEngine(tcat, EngineConfig(platform="cpu",
+                                                join_algo="qd"))
+    teng.prefetch()
+    assert teng.device_key_table(0, 0) is not None
+    assert teng.execute(tparser.parse_query(q)) == want
+    assert len(calls) == 1
+
+
+def test_engine_uses_radix_artifacts_bit_exact(tmp_path, monkeypatch):
+    """After tests/test_radix_join.py::
+    test_engine_uses_radix_artifacts_bit_exact: forced radix with key
+    tables off and the threshold lowered builds prep-time radix artifacts,
+    passes them to the member for both base sides, and answers the
+    oracle's line."""
+    monkeypatch.setattr(radix_join, "RADIX_MIN_ROWS", 512)
+    rng = np.random.default_rng(23)
+    cols = [[rng.integers(0, 300, size=n).astype(np.uint64)
+             for _ in range(3)] for n in (900, 700)]
+    jcat = jcatalog.Catalog([JaxRelation(columns=c) for c in cols])
+    eng = texec.TorchEngine(
+        Catalog([Relation(columns=c) for c in cols]),
+        EngineConfig(platform="cpu", join_algo="radix", key_table_max=0))
+    eng.prefetch()
+    assert eng.device_radix_keys(0, 0) is not None, \
+        "prep must build radix artifacts under the lowered threshold"
+    calls = _spy(monkeypatch, radix_join, "radix_fused_static")
+    before = dict(radix_join.BRANCHES)
+    for text in ("0 1|0.0=1.0|0.1 1.2", "0 1|0.0=1.0&0.1>100|1.1 0.2"):
+        q = jparser.parse_query(text)
+        assert eng.execute(tparser.parse_query(text)) == \
+            execute_query_numpy(q, jcat)
+    assert calls[0]["prep_b"] is not None and calls[0]["prep_p"] is not None
+    # the filtered side sorts at query time; the base side uses its prep
+    assert (calls[1]["prep_b"] is None) != (calls[1]["prep_p"] is None)
+    assert radix_join.BRANCHES["kernel"] == before["kernel"] + 2
 
 
 def test_blowup_reruns_in_text_order(catalogs, expected, monkeypatch):

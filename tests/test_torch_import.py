@@ -1,7 +1,7 @@
 """The torch port stands alone: it imports with `jax` blocked, no module
 of it imports jax, its relation generator writes the reference
-generator's bytes, and (on a machine with a card) its CUDA kernel agrees
-with the plain PyTorch version."""
+generator's bytes, and (on a machine with a card) its CUDA kernels agree
+with their plain PyTorch versions."""
 
 import ast
 import os
@@ -107,3 +107,42 @@ def test_cuda_kernel_matches_plain():
                 assert torch.equal(g[0], want[0])
                 m = want[0] > 0
                 assert torch.equal(g[1][m], want[1][m])
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain():
+    """K4 and K5 against their plain twins on the card: a radix prep of
+    full-range keys, a window at the shared-memory limit's order
+    (9,216 slots), empty windows, and count launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run python3 chip_smoke.py there)")
+    from sigmod2018_tpu_torch.ops import radix_join as trj
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n, bits, P = 60000, 6, 1 << 16
+    pool = torch.randint(-(1 << 63), (1 << 63) - 1, (300,), device=dev,
+                         generator=gen)
+    pool[0] = -1  # live keys 2^64-1
+    k = pool[torch.randint(0, 300, (P,), device=dev, generator=gen)]
+    vals = torch.randint(-(1 << 63), (1 << 63) - 1, (1, P), device=dev,
+                         generator=gen)
+    ks, vs, st, ct, _ = trj._prep_side(k, vals, n, bits)
+    SP = 3072
+    before = dict(trj.LAUNCHES)
+    got = trj.slot_fill(st, ct, [ks, vs[0]], SP)
+    assert torch.equal(got, trj.slot_fill_plain(st, ct, [ks, vs[0]], SP))
+    win = torch.stack([torch.zeros_like(ct), ct], 1)
+    win[1] = 0  # an empty window
+    for kb, wb, kp, wp in [(got[0], win, got[0], win),
+                           (torch.full((1, 9216), 5, device=dev),
+                            torch.tensor([[0, 9216]], dtype=torch.int32,
+                                         device=dev),
+                            torch.full((1, 9216), 5, device=dev),
+                            torch.tensor([[16, 9200]], dtype=torch.int32,
+                                         device=dev))]:
+        mc, pc = trj.probe_counts(kb, wb, kp, wp)
+        wmc, wpc = trj.probe_counts_plain(kb, wb, kp, wp)
+        assert torch.equal(mc, wmc) and torch.equal(pc, wpc)
+    assert trj.LAUNCHES["slot_fill"] == before["slot_fill"] + 1
+    assert trj.LAUNCHES["probe_counts"] == before["probe_counts"] + 2

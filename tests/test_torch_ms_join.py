@@ -226,3 +226,60 @@ def test_join_probe_count_auto_dispatch(monkeypatch):
     monkeypatch.setattr(tms, "EMIT_MS_MIN_ROWS", 256)
     got = tms.join_probe_count_auto(sk, 256, k, 256)
     assert calls and int(got[3]) == 256
+
+
+def _rolled_case(seed, Pb, Pp, nb, npp, dom, shift):
+    rng = np.random.default_rng(seed)
+    kb = _sorted_padded(rng.integers(0, dom, nb).astype(np.uint64)
+                        << np.uint64(shift), Pb)
+    kp = _sorted_padded(rng.integers(0, dom, npp).astype(np.uint64)
+                        << np.uint64(shift), Pp)
+    return kb, nb, kp, npp
+
+
+# The inputs of tests/test_ms_join.py::test_rolled_kernel_matches_oracle
+# (both limb widths) and ::test_rolled_kernel_multi_sublane_tiles.
+_ROLLED = {
+    "matches_oracle-u64": (_rolled_case(5, 2048, 4096, 1800, 3900, 700, 40),
+                           128),
+    "matches_oracle-u32": (_rolled_case(5, 2048, 4096, 1800, 3900, 700, 0),
+                           128),
+    "multi_sublane_tiles": (_rolled_case(6, 4096, 4096, 4000, 4000, 900, 0),
+                            512),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_ROLLED))
+def test_staircase_matches_rolled_kernel(case):
+    """K2 (`_stair_kernel_rolled`, the TPU's kernel for builds past
+    2^23 rows) computes K1's contract; the port serves those builds with
+    K1's kernel in one launch.  Both agree at the JAX tests' shapes."""
+    (kb, nb, kp, npp), WH = _ROLLED[case]
+    W, H, T = jms.stair_plan_rolled(kb.shape[0], kp.shape[0], W=WH, H=WH)
+    want = jms.staircase_counts(jnp.asarray(kb), nb, jnp.asarray(kp), npp,
+                                W=W, H=H, T_cap=T, interpret=True,
+                                rolled=True)
+    _assert_counts(tms.staircase_counts(_t(kb), nb, _t(kp), npp), want, npp)
+
+
+def test_staircase_matches_natural_layout_kernel(monkeypatch):
+    """K3 (`_stair_kernel_nat`, selected by S18_MS_NATKERN=1) computes
+    K1's contract too; interpret mode runs it on the CPU."""
+    import jax
+
+    calls = []
+    real = jms._stair_kernel_nat
+    monkeypatch.setattr(jms, "_stair_kernel_nat",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    monkeypatch.setenv("S18_MS_NATKERN", "1")
+    (kb, nb, kp, npp), WH = _ROLLED["matches_oracle-u64"]
+    W, H, T = jms.stair_plan_rolled(kb.shape[0], kp.shape[0], W=WH, H=WH)
+    jax.clear_caches()  # the kernel body is chosen while tracing
+    try:
+        want = jms.staircase_counts(jnp.asarray(kb), nb, jnp.asarray(kp),
+                                    npp, W=W, H=H, T_cap=T, interpret=True,
+                                    rolled=True)
+    finally:
+        jax.clear_caches()
+    assert calls, "the natural-layout kernel was not traced"
+    _assert_counts(tms.staircase_counts(_t(kb), nb, _t(kp), npp), want, npp)
