@@ -9,17 +9,21 @@ Phases, each of which must pass:
    csrc/probe_counts.cu, one nvcc each, all started together, timed,
    with ptxas's report;
 3. kernels vs plain, on the card, each with the median time of kernel
-   and plain twin (CUDA events, L2 flushed before every run):
+   and plain twin (CUDA events, L2 flushed before every run) and the
+   bound of `bound()` (bytes over the card's memory rate):
    - K1 `ops.ms_join.staircase_counts` against `staircase_counts_plain`
      at the serving path's shapes, cnt exactly and lo where cnt > 0
      (its 2^24-row build is the size where the TPU needed the rolled
-     kernels K2/K3, whose contract K1 serves);
+     kernels K2/K3, whose contract K1 serves), also timed against two
+     `torch.searchsorted` calls, the library yardstick;
    - K4 `ops.radix_join.slot_fill` against `slot_fill_plain`, the whole
      [K, B, SP] matrix exactly, at the radix member's and the
      equi-depth member's 2^21 shapes;
    - K5 `ops.radix_join.probe_counts` against `probe_counts_plain`, mc
-     and pc exactly, at those shapes, a window of MAX_SLOTS keys, keys
-     over the full u64 range with live 2^64-1 keys, and empty windows;
+     and pc exactly, at those shapes, the radix windows shuffled (not
+     ascending), zipf-like keys (buckets near the 2,048-slot cap), a
+     window of MAX_SLOTS keys in no order, keys over the full u64 range
+     with live 2^64-1 keys, and empty windows;
 4. end to end: the relation binaries of workloads/big and
    workloads/bigdom are regenerated from their seeds
    (sigmod2018_tpu_torch.tools.workload, parameters of
@@ -29,9 +33,15 @@ Phases, each of which must pass:
    Every output line must equal the committed .result; under auto K1
    launches, under radix and qd K4 and K5 launch and the members' kernel
    branch serves at least one join per workload.  Every kernel count is
-   set to 0 just before each run and read just after it.
+   set to 0 just before each run and read just after it.  A count is of
+   kernel launches: one K1 call launches two (the bounds pass and the
+   merge pass), or the merge pass alone when host counts leave no live
+   row.
 
-The line before the last is the kernel table as JSON; the last line is
+The line before the last is the kernel table as JSON (per kernel: time,
+plain and library times, bound and its share, launches on the path that
+runs it, on auto's main path and under the forced members); the last
+line is
 {"ok": true, "device": {...}}.  Any failure exits non-zero before either
 is printed, as does a machine without a CUDA device.
 
@@ -58,6 +68,42 @@ KERNEL_SOURCES = ("stair_counts", "slot_fill", "probe_counts")
 K1_MAIN_CASE = "2^21 keys<2^20"
 K1_BIG_BUILD_CASE = "build 2^24 x probe 2^21"
 
+# H100 SXM device memory rate (NVIDIA's data sheet), at the full 700 W
+HBM_BYTES_PER_S = 3.35e12
+SPIN_CYCLES = 400_000  # ~0.2 ms of device time before each timed call
+
+
+def bound(kernel: str, **n) -> tuple:
+    """(ms, bytes): the least time the card could take for one call,
+    the bytes it must move over the memory rate, each input byte read
+    once and each output byte written once.  Live rows only where the
+    kernel reads only those (the work depends on the data):
+
+    - K1 (n_b, n_p, Pp): live build and probe u64 keys read (none when
+      a side is empty: every count is then 0), int32 cnt and lo written
+      for all Pp probe rows;
+    - K4 (K, B, SP, live): K u64 arrays' live rows read, int32 starts
+      and cnts read, the [K, B, SP] u64 matrix written;
+    - K5 (B, Sb, Sp, live_b, live_p): the windows' live u64 keys (the
+      caller counts a bucket's only where both its windows hold keys) and
+      the int32 [B, 2] windows read, int32 mc [B, Sb] and pc [B, Sp]
+      written.
+
+    Their operations (compares and adds, a few per byte moved) stay far
+    below the card's integer rate, so bytes bound all three."""
+    if kernel == "K1":
+        keys = n["n_b"] + n["n_p"] if n["n_b"] and n["n_p"] else 0
+        nbytes = 8 * keys + 8 * n["Pp"]
+    elif kernel == "K4":
+        nbytes = 8 * n["K"] * n["live"] + 8 * n["B"] \
+            + 8 * n["K"] * n["B"] * n["SP"]
+    elif kernel == "K5":
+        nbytes = 8 * (n["live_b"] + n["live_p"]) + 16 * n["B"] \
+            + 4 * n["B"] * (n["Sb"] + n["Sp"])
+    else:
+        raise ValueError(f"no bound for {kernel}")
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
 # tools/regen_workloads.sh
 WORKLOADS = {
     "big": dict(profile="uniform", rows=2_000_000, relations=4,
@@ -81,12 +127,16 @@ def card_line() -> str:
 
 def median_ms(fn, flush: torch.Tensor, reps: int = 15) -> float:
     """Median device time of fn() by CUDA events, L2 flushed before each
-    run (a 64 MB write evicts the card's 50 MB L2)."""
+    run: a 64 MB read evicts the card's 50 MB L2 and leaves it clean (a
+    write would leave dirty lines whose write-back the timed call pays)."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
-        flush.zero_()
+        flush.sum()
+        # keep the card busy while the host prepares fn's launches, so the
+        # events time the device work and not the host's dispatch
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -145,8 +195,11 @@ def kernel_cases(dev):
 
 def phase_kernel(dev, card: str, flush: torch.Tensor):
     """K1 against its plain twin: (max_abs_err, {case: (kernel ms, plain
-    ms)})."""
+    ms, library ms, bound ms)}).  The library yardstick is two
+    torch.searchsorted calls (left and right) on keys flipped beforehand;
+    the port never calls it."""
     from sigmod2018_tpu_torch.ops import ms_join
+    from sigmod2018_tpu_torch.ops.u64 import flip
 
     before = ms_join.LAUNCHES
     max_err = 0
@@ -167,12 +220,19 @@ def phase_kernel(dev, card: str, flush: torch.Tensor):
                          flush)
         p_ms = median_ms(
             lambda: ms_join.staircase_counts_plain(kb, n_b, kp, n_p), flush)
-        times[name] = (k_ms, p_ms)
+        fb, fp = flip(kb[:int(n_b)]), flip(kp)
+        lib_ms = median_ms(
+            lambda: (torch.searchsorted(fb, fp, side="left"),
+                     torch.searchsorted(fb, fp, side="right")), flush)
+        b_ms, nbytes = bound("K1", n_b=int(n_b), n_p=int(n_p),
+                             Pp=kp.shape[0])
+        times[name] = (k_ms, p_ms, lib_ms, b_ms)
         print(f"K1 kernel-vs-plain [{name}] Pb={kb.shape[0]} "
               f"Pp={kp.shape[0]} n_b={int(n_b)} n_p={int(n_p)} "
               f"matches={int(cnt_p.sum())}: cnt/lo exact; kernel "
-              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms (median, {card})",
-              flush=True)
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, 2x searchsorted "
+              f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({nbytes} bytes; "
+              f"{b_ms / k_ms:.1%} of it) (median, {card})", flush=True)
     if ms_join.LAUNCHES <= before:
         raise AssertionError("the kernel's launch count did not grow")
     return max_err, times
@@ -211,9 +271,37 @@ def _qd_sides(dev, gen, P: int, n: int):
             ct.to(torch.int32))
 
 
+def _window_lengths(w: torch.Tensor, S: int) -> torch.Tensor:
+    """Live slots of each int32 [B, 2] window, clamped to a row of S."""
+    lo, hi = torch.clamp(w[:, 0], 0, S), torch.clamp(w[:, 1], 0, S)
+    return torch.clamp(hi - lo, min=0)
+
+
+def _zipf_keys(dev, gen, P: int, n_hot: int = 64, top: int = 1500):
+    """P keys uniform below 2^20, with n_hot hot keys of multiplicity
+    top / rank spread over them: at radix 2^21 (4,096 buckets, ~490 rows
+    each) the hot keys' buckets hold up to ~2,000 rows."""
+    keys = torch.randint(0, 1 << 20, (P,), generator=gen, device=dev)
+    hot = torch.randint(0, 1 << 20, (n_hot,), generator=gen, device=dev)
+    reps = torch.tensor([top // (r + 1) for r in range(n_hot)], device=dev)
+    rows = torch.randperm(P, generator=gen, device=dev)[:int(reps.sum())]
+    keys[rows] = torch.repeat_interleave(hot, reps)
+    return keys
+
+
+def _shuffle_windows(mat: torch.Tensor, ct: torch.Tensor, gen):
+    """Each row's window [0, ct) in a random order (slots past it stay)."""
+    S = mat.shape[1]
+    r = torch.rand(mat.shape, generator=gen, device=mat.device)
+    s = torch.arange(S, device=mat.device)
+    r = torch.where(s[None, :] < ct[:, None], r, 2.0 + s[None, :])
+    return torch.gather(mat, 1, torch.argsort(r, 1)).contiguous()
+
+
 def phase_radix_kernels(dev, card: str, flush: torch.Tensor):
     """K4 and K5 against their plain twins at the forced members' 2^21
-    shapes: {kernel: (max_abs_err, {case: (kernel ms, plain ms)})}."""
+    shapes: {kernel: (max_abs_err, {case: (kernel ms, plain ms, None,
+    bound ms)})}: no single PyTorch call computes either."""
     from sigmod2018_tpu_torch.ops import qd_join, radix_join as rj
 
     gen = torch.Generator(device=dev).manual_seed(2019)
@@ -233,11 +321,14 @@ def phase_radix_kernels(dev, card: str, flush: torch.Tensor):
         k_ms = median_ms(lambda: rj.slot_fill(st, ct, srcs, SP), flush)
         p_ms = median_ms(lambda: rj.slot_fill_plain(st, ct, srcs, SP),
                          flush)
-        out["slot_fill"][1][name] = (k_ms, p_ms)
+        b_ms, nbytes = bound("K4", K=len(srcs), B=st.shape[0], SP=SP,
+                             live=int(torch.clamp(ct, max=SP).sum()))
+        out["slot_fill"][1][name] = (k_ms, p_ms, None, b_ms)
         print(f"K4 kernel-vs-plain [{name}] K={len(srcs)} "
               f"B={st.shape[0]} SP={SP} live={int(ct.sum())}: whole "
-              f"matrix exact; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-              f"(median, {card})", flush=True)
+              f"matrix exact; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({nbytes} bytes; {b_ms / k_ms:.1%} of "
+              f"it) (median, {card})", flush=True)
         return got
 
     def k5(name, kb, wb, kp, wp):
@@ -251,11 +342,19 @@ def phase_radix_kernels(dev, card: str, flush: torch.Tensor):
         k_ms = median_ms(lambda: rj.probe_counts(kb, wb, kp, wp), flush)
         p_ms = median_ms(lambda: rj.probe_counts_plain(kb, wb, kp, wp),
                          flush)
-        out["probe_counts"][1][name] = (k_ms, p_ms)
-        print(f"K5 kernel-vs-plain [{name}] B={kb.shape[0]} "
-              f"Sb={kb.shape[1]} Sp={kp.shape[1]} matches={int(mc.sum())}: "
-              f"mc/pc exact; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-              f"(median, {card})", flush=True)
+        (B, Sb), Sp = kb.shape, kp.shape[1]
+        nw_b, nw_p = _window_lengths(wb, Sb), _window_lengths(wp, Sp)
+        both = (nw_b > 0) & (nw_p > 0)  # else the bucket's counts are 0
+        b_ms, nbytes = bound("K5", B=B, Sb=Sb, Sp=Sp,
+                             live_b=int(nw_b[both].sum()),
+                             live_p=int(nw_p[both].sum()))
+        out["probe_counts"][1][name] = (k_ms, p_ms, None, b_ms)
+        print(f"K5 kernel-vs-plain [{name}] B={B} Sb={Sb} Sp={Sp} "
+              f"matches={int(mc.sum())} largest windows "
+              f"{int(nw_b.max())}/{int(nw_p.max())}: "
+              f"mc/pc exact; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({nbytes} bytes; {b_ms / k_ms:.1%} of "
+              f"it) (median, {card})", flush=True)
 
     def wins(ct, lo=None):
         lo = torch.zeros_like(ct) if lo is None else lo
@@ -271,7 +370,18 @@ def phase_radix_kernels(dev, card: str, flush: torch.Tensor):
        wins(ct_p))
     k5("radix 2^21 n_p=0", mb[0], wins(ct_b), mp[0],
        wins(torch.zeros_like(ct_p)))
+    # the same windows in a random order: the kernel sorts them itself
+    k5("radix 2^21 unsorted windows", _shuffle_windows(mb[0], ct_b, gen),
+       wins(ct_b), _shuffle_windows(mp[0], ct_p, gen), wins(ct_p))
     del mb, mp
+
+    # zipf-like keys: a few buckets near the 2,048-slot cap, most ~490
+    zk = _zipf_keys(dev, gen, P)
+    zb, _, zst_b, zct_b = _radix_side(dev, gen, P, N, bits, keys=zk)
+    zp, _, zst_p, zct_p = _radix_side(dev, gen, P, N, bits,
+                                      keys=zk.flip(0).contiguous())
+    k5("radix 2^21 zipf-like keys", rj.slot_fill(zst_b, zct_b, [zb], SPb)[0],
+       wins(zct_b), rj.slot_fill(zst_p, zct_p, [zp], SPp)[0], wins(zct_p))
 
     # qd at 2^21: B 8,192, build rows SPb + H = 320, probe SPp 2,048
     (qSPb, H, qSPp), qkb, qkp, qvp, qst, qct = _qd_sides(dev, gen, P, N)
@@ -477,7 +587,7 @@ def main() -> int:
         if log.exists():
             print(log.read_text().strip(), flush=True)
 
-    flush = torch.empty(1 << 26, dtype=torch.uint8, device=dev)
+    flush = torch.ones(1 << 23, dtype=torch.int64, device=dev)  # 64 MB
     k1_err, k1_times = phase_kernel(dev, card, flush)
     radix_kernels = phase_radix_kernels(dev, card, flush)
     totals = phase_end_to_end(dev, card)
@@ -485,31 +595,41 @@ def main() -> int:
     k1_main, k1_big = k1_times[K1_MAIN_CASE], k1_times[K1_BIG_BUILD_CASE]
     k4_err, k4_times = radix_kernels["slot_fill"]
     k5_err, k5_times = radix_kernels["probe_counts"]
-    forced = {k: totals["radix"][k] + totals["qd"][k] for k in ("K4", "K5")}
+    forced = {k: totals["radix"][k] + totals["qd"][k]
+              for k in ("K1", "K4", "K5")}
+
+    def timed(t):  # (kernel, plain, library, bound) ms of one case
+        return dict(ms=t[0], plain_ms=t[1], library_ms=t[2], bound_ms=t[3],
+                    bound_by="bytes", bound_share=t[3] / t[0])
+
+    # `launches`: the path that runs the kernel (auto for K1, the forced
+    # members for K4 and K5); `main_path_launches`: auto's
     stair = dict(route="cuda",
                  source="sigmod2018_tpu_torch/csrc/stair_counts.cu",
-                 launches=totals["auto"]["K1"], max_abs_err=k1_err)
+                 launches=totals["auto"]["K1"],
+                 main_path_launches=totals["auto"]["K1"],
+                 forced_launches=forced["K1"], max_abs_err=k1_err)
     rows = [
         dict(name="stair_counts", replaces="sigmod2018_tpu/ops/ms_join.py:123",
-             ms=k1_main[0], plain_ms=k1_main[1], **stair),
+             **timed(k1_main), **stair),
         dict(name="stair_counts serving K2's contract (rolled layout)",
-             replaces="sigmod2018_tpu/ops/ms_join.py:233",
-             ms=k1_big[0], plain_ms=k1_big[1], **stair),
+             replaces="sigmod2018_tpu/ops/ms_join.py:233", **timed(k1_big),
+             **stair),
         dict(name="stair_counts serving K3's contract (natural layout)",
-             replaces="sigmod2018_tpu/ops/ms_join.py:336",
-             ms=k1_big[0], plain_ms=k1_big[1], **stair),
+             replaces="sigmod2018_tpu/ops/ms_join.py:336", **timed(k1_big),
+             **stair),
         dict(name="slot_fill", route="cuda",
              source="sigmod2018_tpu_torch/csrc/slot_fill.cu",
              replaces="sigmod2018_tpu/ops/radix_join.py:218",
-             launches=forced["K4"], max_abs_err=k4_err,
-             ms=k4_times["radix 2^21 build"][0],
-             plain_ms=k4_times["radix 2^21 build"][1]),
+             launches=forced["K4"], main_path_launches=totals["auto"]["K4"],
+             forced_launches=forced["K4"], max_abs_err=k4_err,
+             **timed(k4_times["radix 2^21 build"])),
         dict(name="probe_counts", route="cuda",
              source="sigmod2018_tpu_torch/csrc/probe_counts.cu",
              replaces="sigmod2018_tpu/ops/radix_join.py:282",
-             launches=forced["K5"], max_abs_err=k5_err,
-             ms=k5_times["radix 2^21"][0],
-             plain_ms=k5_times["radix 2^21"][1]),
+             launches=forced["K5"], main_path_launches=totals["auto"]["K5"],
+             forced_launches=forced["K5"], max_abs_err=k5_err,
+             **timed(k5_times["radix 2^21"])),
     ]
     print(card)
     print(json.dumps({"kernels": rows}))

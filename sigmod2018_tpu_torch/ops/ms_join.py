@@ -35,9 +35,11 @@ from .select import Count, live_mask
 from .sort_join import _ccum_total, join_build, join_probe_count
 from .u64 import flip
 
-# Launches of the CUDA kernel since the last reset (the plain twin does
-# not count).  Incremented under _count_lock: the protocol driver
-# dispatches a batch's queries from several threads.
+# CUDA kernel launches since the last reset (the plain twin does not
+# count): a call launches two, the bounds pass and the merge pass, or the
+# merge pass alone when host counts leave no live row.  Incremented under
+# _count_lock: the protocol driver dispatches a batch's queries from
+# several threads.
 LAUNCHES = 0
 _count_lock = threading.Lock()
 
@@ -96,8 +98,11 @@ def _stair_lib():
     fn = lib.s18_stair_counts
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, i, p, i, i, p, p, p]
+        fn.argtypes = [p, i, p, i, p, i, i, p, p, p, ctypes.c_longlong, p,
+                       ctypes.POINTER(i)]
         fn.restype = ctypes.c_int
+        lib.s18_stair_scratch_ints.argtypes = [i]
+        lib.s18_stair_scratch_ints.restype = ctypes.c_longlong
         lib.s18_error_string.argtypes = [ctypes.c_int]
         lib.s18_error_string.restype = ctypes.c_char_p
     return lib
@@ -121,17 +126,21 @@ def _staircase_counts_cuda(kb, n_b: Count, kp, n_p: Count):
                              for n in (n_b, n_p)])
     else:
         nb, np_ = int(n_b), int(n_p)
+    scratch = torch.empty(lib.s18_stair_scratch_ints(Pp), dtype=torch.int32,
+                          device=dev)
+    launched = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.s18_stair_counts(
             kb.data_ptr(), kb.shape[0], kp.data_ptr(), Pp,
             None if n_dev is None else n_dev.data_ptr(), nb, np_,
-            cnt.data_ptr(), lo.data_ptr(), stream)
+            cnt.data_ptr(), lo.data_ptr(), scratch.data_ptr(),
+            scratch.shape[0], stream, ctypes.byref(launched))
     if err != 0:
         raise RuntimeError(f"stair_counts kernel launch failed: "
                            f"{lib.s18_error_string(err).decode()}")
     with _count_lock:
-        LAUNCHES += 1
+        LAUNCHES += launched.value
     return cnt, lo
 
 
@@ -149,9 +158,13 @@ def staircase_counts(kb: torch.Tensor, n_b: Count, kp: torch.Tensor,
     run staircase_counts_plain.  Replaces the Pallas kernel
     sigmod2018_tpu/ops/ms_join.py::_stair_kernel.  On the card the kernel
     is bound by bytes: it reads the two sorted u64 arrays and writes two
-    int32 per probe row.  Each block binary-searches its probe chunk's
-    band of the build once and stages it in shared memory, so the build
-    is read about once and per-row searches stay on chip."""
+    int32 per probe row.  A first launch finds, for every chunk of 1,024
+    sorted probe rows, the build bounds of its first and last key (one
+    warp a bound, into int32 scratch of the size the library gives); then
+    one block a chunk answers rows of those two keys from the bounds and
+    merges the rest against the build window between them, staged in
+    shared memory.  The first launch is skipped when host counts leave no
+    live row."""
     _check(kb, n_b, kp, n_p)
     if kb.device.type == "cpu":
         return staircase_counts_plain(kb, n_b, kp, n_p)

@@ -9,9 +9,9 @@ The radix member (forced with `S18_JOIN=radix`):
               value columns; bucket starts are ranks of the bucket edges
   slot fill:  `slot_fill` copies bucket b's rows of each sorted array into
               row b of a [B, SP] matrix, slots [0, cnt_b) (kernel K4)
-  probe:      `probe_counts` compares every live build slot of a bucket
-              with every live probe slot and gives per-slot match counts
-              of both sides in one pass (kernel K5)
+  probe:      `probe_counts` counts, for every live build slot of a bucket,
+              the equal live probe slots and the other way round, in one
+              launch (kernel K5)
   sums:       the counts weight the slot-filled value columns (the
               agg_join contract: exact wrap-around u64)
 
@@ -298,9 +298,11 @@ def slot_fill(starts: torch.Tensor, cnts: torch.Tensor,
 # K5: per-bucket dual match counts
 # ---------------------------------------------------------------------------
 
-# Build slots per bucket row that K5 stages in shared memory: 12 bytes a
-# slot (key + counter) within a block's 227 KB on sm_90.
-PROBE_MAX_BUILD_SLOTS = 232448 // 12
+# Build slots per bucket row that K5 accepts, csrc/probe_counts.cu's
+# kMaxBuildSlots: a staged build window of 19,370 slots leaves 9,686 of
+# the 29,056 8-byte slots in a block's 227 KB of shared memory for a
+# probe tile.
+PROBE_MAX_BUILD_SLOTS = 19370
 
 # probe_counts_plain's [chunk, Sb, Sp] equality tensor stays near this.
 _PLAIN_PAIRS = 1 << 28
@@ -397,9 +399,11 @@ def probe_counts(kb: torch.Tensor, wb: torch.Tensor, kp: torch.Tensor,
 
     CUDA tensors launch csrc/probe_counts.cu (or raise); CPU tensors run
     probe_counts_plain.  Replaces the Pallas kernel
-    sigmod2018_tpu/ops/radix_join.py::_probe_kernel.  On the card one
-    block per bucket stages the build window in shared memory and scans
-    it for the probe window: bound by the nb x np compares per bucket.
+    sigmod2018_tpu/ops/radix_join.py::_probe_kernel.  On the card each
+    block owns one bucket's chunk of 1,024 output slots per side: it
+    stages the bucket's build and probe windows in shared memory (sorting
+    a window that is not ascending) and takes each count from two binary
+    searches, so a large bucket spreads over many blocks; bound by bytes.
     Sb is limited to PROBE_MAX_BUILD_SLOTS."""
     _check_probe(kb, wb, kp, wp)
     if kb.shape[1] > PROBE_MAX_BUILD_SLOTS:

@@ -102,7 +102,9 @@ def test_cuda_kernel_matches_plain():
             got_t = ms_join.staircase_counts(
                 kb, torch.tensor(nb, device=dev), kp, npr)
             want = ms_join.staircase_counts_plain(kb, nb, kp, npr)
-            assert ms_join.LAUNCHES == before + 2
+            # the bounds pass and the merge pass; the merge pass alone
+            # when host counts leave no live row
+            assert ms_join.LAUNCHES == before + (2 if nb and npr else 1) + 2
             for g in (got, got_t):
                 assert torch.equal(g[0], want[0])
                 m = want[0] > 0

@@ -135,6 +135,17 @@ def test_wrapper_rejects_bad_input():
         tms.staircase_counts(k[::2], 1, k, 1)
 
 
+def test_plain_twin_counts_no_launch():
+    """CPU tensors run the plain twin, which leaves the kernels' launch
+    count alone: chip_smoke.py reads that count to prove the main path
+    went through the CUDA kernel."""
+    kb = _t(_sorted_padded(np.arange(6, dtype=np.uint64), 8))
+    before = tms.LAUNCHES
+    cnt, _ = tms.staircase_counts(kb, 6, kb, 6)
+    assert tms.LAUNCHES == before
+    assert cnt.tolist() == [1] * 6 + [0, 0]
+
+
 @pytest.mark.parametrize("seed,presorted", [(0, False), (1, True)])
 def test_ms_fused_matches_jax(seed, presorted):
     rng = np.random.default_rng(seed)

@@ -157,6 +157,23 @@ def test_qd_matches_jax(jax_results, name):
     assert tqd.BRANCHES[branch] == before[branch] + 1
 
 
+@pytest.mark.parametrize("name", sorted(n for n, (_, branch) in CASES.items()
+                                        if branch == "kernel"))
+def test_qd_body_passes_ascending_windows(monkeypatch, name):
+    """The qd member's K5 windows, slices of one sorted side with the
+    halo, are ascending (unsigned): K5's kernel skips its sort there."""
+    from test_torch_radix_join import spy_probe_counts
+
+    calls = spy_probe_counts(monkeypatch, tqd)
+    bk, bv, pk, pv = CASES[name][0]()
+    got = _result(tqd.qd_fused_static(
+        _t(_pad(bk)), _t(_padv(bv)), bk.size, _t(_pad(pk)), _t(_padv(pv)),
+        pk.size, **_plan()))
+    assert got == _oracle(bk, bv, pk, pv)
+    # probe rows below the first quantile match nothing and sit in no window
+    assert len(calls) == 1 and calls[0][1] <= pk.size
+
+
 def test_qd_plan_matches_jax():
     for P in [1 << s for s in range(6, 25)]:
         for Pp in (P, 4 * P, max(P // 16, 1)):

@@ -306,6 +306,71 @@ def test_static_branches_match_jax(jax_static, branch, case):
     assert got == _oracle(*case())
 
 
+SIGN = torch.iinfo(torch.int64).min
+
+
+def assert_windows_ascending(mat, w):
+    """Every live window [lo, hi) of the int64 [B, S] key matrix is
+    ascending as unsigned u64: K5's kernel skips its in-block sort then."""
+    S = mat.shape[1]
+    lo = torch.clamp(w[:, :1].long(), 0, S)
+    hi = torch.clamp(w[:, 1:].long(), 0, S)
+    s = torch.arange(S - 1)
+    pairs = (s[None, :] >= lo) & (s[None, :] + 1 < hi)
+    f = mat ^ SIGN  # unsigned order as signed
+    assert bool(((f[:, 1:] >= f[:, :-1]) | ~pairs).all())
+
+
+def spy_probe_counts(monkeypatch, module):
+    """Wrap `module.probe_counts`, checking that both windows it is
+    given are ascending; returns the list of calls seen."""
+    calls = []
+    real = trj.probe_counts
+
+    def spy(kb, wb, kp, wp):
+        assert_windows_ascending(kb, wb)
+        assert_windows_ascending(kp, wp)
+        calls.append((int((wb[:, 1] - wb[:, 0]).clamp(min=0).sum()),
+                      int((wp[:, 1] - wp[:, 0]).clamp(min=0).sum())))
+        return real(kb, wb, kp, wp)
+
+    monkeypatch.setattr(module, "probe_counts", spy)
+    return calls
+
+
+@pytest.mark.parametrize("case", [_uniform_case, _hot_case])
+def test_radix_body_passes_ascending_windows(monkeypatch, case):
+    """The radix member's K5 windows, slots [0, cnt) of the rotated-key
+    sort, are ascending (unsigned); the kernel branch must have served."""
+    calls = spy_probe_counts(monkeypatch, trj)
+    before = dict(trj.BRANCHES)
+    bk, bv, pk, pv = case()
+    got = _result(_port_static((bk, bv, pk, pv)))
+    assert got == _oracle(bk, bv, pk, pv)
+    served = trj.BRANCHES["kernel"] - before["kernel"]
+    assert len(calls) == served
+    if case is _uniform_case:
+        assert calls and calls[0] == (bk.size, pk.size)
+
+
+@pytest.mark.parametrize("seed,nb,npr,keyspace,bits", [
+    (0, 500, 800, 50, 4), (3, 700, 700, 1, 4), (7, 4000, 4000, 900, 6)])
+def test_radix_checksum_passes_ascending_windows(monkeypatch, seed, nb, npr,
+                                                 keyspace, bits):
+    calls = spy_probe_counts(monkeypatch, trj)
+    rng = np.random.default_rng(seed)
+    bk = rng.integers(0, keyspace, nb, dtype=np.uint64)
+    pk = rng.integers(0, keyspace, npr, dtype=np.uint64)
+    full = _full_range_keys(rng, 50)  # high bits and live 2^64-1 keys
+    bk[:50], pk[:50] = full, full[::-1]
+    bv = [rng.integers(0, 1 << 40, nb, dtype=np.uint64)]
+    pv = [rng.integers(0, 1 << 40, npr, dtype=np.uint64)]
+    got = _result(trj.radix_join_checksum(*_port_args(bk, bv, pk, pv),
+                                          bits=bits))
+    assert got == _oracle(bk, bv, pk, pv)
+    assert calls == [(nb, npr)]
+
+
 def _jax_artifacts(keys, n, bits, vals):
     """JAX radix_prep_keys outputs -> the port's (artifact tuple,
     pre-sorted value stack)."""
