@@ -24,15 +24,25 @@ Phases, each of which must pass:
      ascending), zipf-like keys (buckets near the 2,048-slot cap), a
      window of MAX_SLOTS keys in no order, keys over the full u64 range
      with live 2^64-1 keys, and empty windows;
-4. end to end: the relation binaries of workloads/big and
-   workloads/bigdom are regenerated from their seeds
+4. factorized message: one message of engine/factorized.py at 2^21
+   padded rows, on an edge of workloads/zipfbig (relation 1 joined with
+   itself), held exactly against the NumPy twin's message and timed
+   (CUDA events) in the port's gather form and in a sort form; then that
+   query whole through `factorized_result`, its line against the NumPy
+   twin's, the host's dispatch time beside the card's;
+5. end to end: the relation binaries of workloads/big, bigdom, zipfbig,
+   scaled and zipf are regenerated from their seeds
    (sigmod2018_tpu_torch.tools.workload, parameters of
-   tools/regen_workloads.sh), `init + Done + .work` goes through the
-   port's `run_protocol` on the card under the auto member choice (twice)
-   and with the radix and the equi-depth members forced (once each).
+   tools/regen_workloads.sh, full size), `init + Done + .work` goes
+   through the port's `run_protocol` on the card under the auto member
+   choice (twice) and, for big and bigdom, with the radix and the
+   equi-depth members forced (once each).
    Every output line must equal the committed .result; under auto K1
-   launches, under radix and qd K4 and K5 launch and the members' kernel
-   branch serves at least one join per workload.  Every kernel count is
+   launches on the 2,000,000-row workloads, under radix and qd K4 and K5
+   launch and the members' kernel branch serves at least one join per
+   workload.  The engine's tier counts must add up to the queries sent;
+   on zipfbig a factorized tier must serve at least one query and on
+   scaled `factorized_proactive` must.  Every kernel count is
    set to 0 just before each run and read just after it.  A count is of
    kernel launches: one K1 call launches two (the bounds pass and the
    merge pass), or the merge pass alone when host counts leave no live
@@ -40,10 +50,10 @@ Phases, each of which must pass:
 
 The line before the last is the kernel table as JSON (per kernel: time,
 plain and library times, bound and its share, launches on the path that
-runs it, on auto's main path and under the forced members); the last
-line is
-{"ok": true, "device": {...}}.  Any failure exits non-zero before either
-is printed, as does a machine without a CUDA device.
+runs it, on auto's main path, per auto run of each workload, and under
+the forced members); the last line is {"ok": true, "device": {...}}.  Any
+failure exits non-zero before either is printed, as does a machine
+without a CUDA device.
 
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -110,7 +120,21 @@ WORKLOADS = {
                 keyspace=1_048_576, seed=7),
     "bigdom": dict(profile="bigdom", rows=2_000_000, relations=4,
                    keyspace=1_048_576, seed=11),
+    "zipfbig": dict(profile="zipfbig", rows=2_000_000, relations=4,
+                    keyspace=1_048_576, seed=13),
+    "scaled": dict(profile="scaled", rows=20_000, scale=10, relations=6,
+                   keyspace=20_000, seed=3),
+    "zipf": dict(profile="zipf", rows=50_000, relations=6, keyspace=5_000,
+                 seed=4),
 }
+FORCED_WORKLOADS = ("big", "bigdom")  # the others run under auto only
+K1_WORKLOADS = ("big", "bigdom", "zipfbig")  # joins at 2^21 padded rows
+# the serving tiers of which at least one query must come, under auto
+REQUIRED_TIERS = {"zipfbig": ("factorized_proactive", "factorized_blowup"),
+                  "scaled": ("factorized_proactive",)}
+# zipfbig's 4th query joins relation 1 with itself on these columns
+MESSAGE_EDGE = dict(srel=1, scol=2, rrel=1, rcol=0)
+MESSAGE_QUERY = 3  # index of that query among zipfbig's
 
 
 def card_line() -> str:
@@ -424,6 +448,117 @@ def phase_radix_kernels(dev, card: str, flush: torch.Tensor):
     return out
 
 
+def generate_workloads() -> dict:
+    """Write every workload's relation binaries: {name: seconds}."""
+    from sigmod2018_tpu_torch.tools.workload import write_relations
+
+    seconds = {}
+    for name, params in WORKLOADS.items():
+        t0 = time.perf_counter()
+        write_relations(SMOKE_DIR / name, **params)
+        seconds[name] = time.perf_counter() - t0
+    return seconds
+
+
+def workload_files(name: str):
+    """(relation paths, .work lines, .result lines) of a workload."""
+    src = ROOT / "workloads" / name
+    init = [str(SMOKE_DIR / name / r)
+            for r in (src / f"{name}.init").read_text().split()]
+    return (init, (src / f"{name}.work").read_text().splitlines(),
+            (src / f"{name}.result").read_text().splitlines())
+
+
+def message_sort_form(sw, se, inv, lo, hi):
+    """engine/factorized.py::message with the weights brought into key
+    order by a sort keyed on the inverse permutation, where the port
+    gathers by the prep-time permutation.  torch.sort takes one operand,
+    so the other arrays follow by the indices it returns."""
+    from sigmod2018_tpu_torch.engine.factorized import message
+
+    return message(sw, se, torch.sort(inv)[1], lo, hi)
+
+
+def phase_message(dev, card: str, flush: torch.Tensor) -> dict:
+    """One factorized message on MESSAGE_EDGE of workloads/zipfbig, with
+    random u64 weights on the live rows that pass a filter: exact against
+    the NumPy twin's message, then {form: median device ms}."""
+    import numpy as np
+
+    from sigmod2018_tpu_torch.config import EngineConfig
+    from sigmod2018_tpu_torch.engine import factorized
+    from sigmod2018_tpu_torch.engine.executor import TorchEngine
+    from sigmod2018_tpu_torch.storage.catalog import Catalog
+
+    e = MESSAGE_EDGE
+    catalog = Catalog.from_files(workload_files("zipfbig")[0],
+                                 compute_stats=False)
+    engine = TorchEngine(catalog, EngineConfig(platform="cuda"))
+    perm, lo, hi = factorized.edge_ranks(engine, **e)
+    P, n = perm.shape[0], catalog.relation(e["srel"]).num_tuples
+    gen = torch.Generator(device=dev).manual_seed(2020)
+    se = ((torch.arange(P, device=dev) < n)
+          & (torch.rand(P, generator=gen, device=dev) < 0.7))
+    sw = torch.randint(-(1 << 62), 1 << 62, (P,), generator=gen,
+                       device=dev) * se
+    inv = torch.empty_like(perm)
+    inv[perm.long()] = torch.arange(P, dtype=perm.dtype, device=dev)
+    got_w, got_e = factorized.message(sw, se, perm, lo, hi)
+    alt_w, alt_e = message_sort_form(sw, se, inv, lo, hi)
+    skey = catalog.dense_column(e["srel"], e["scol"])
+    rkey = catalog.dense_column(e["rrel"], e["rcol"])
+    want_w, want_e = factorized._np_msg_cached(
+        sw[:n].cpu().numpy().view(np.uint64), se[:n].cpu().numpy(),
+        *factorized._np_edge_ranks(catalog, skey=skey, rkey=rkey, **e))
+    n_r = rkey.shape[0]
+    for form, (w, x) in (("gather", (got_w, got_e)),
+                         ("sort", (alt_w, alt_e))):
+        if not (np.array_equal(w[:n_r].cpu().numpy().view(np.uint64), want_w)
+                and np.array_equal(x[:n_r].cpu().numpy(), want_e)):
+            raise AssertionError(f"factorized message, {form} form != the "
+                                 f"NumPy twin's on {e}")
+    times = {
+        "gather": median_ms(
+            lambda: factorized.message(sw, se, perm, lo, hi), flush),
+        "sort": median_ms(
+            lambda: message_sort_form(sw, se, inv, lo, hi), flush)}
+    print(f"factorized message [zipfbig edge {e}] Ps=Pr={P} live senders "
+          f"{int(se.sum())} receivers with a sender {int(want_e.sum())}: "
+          f"sums and exists exact against the NumPy twin; gather form "
+          f"{times['gather']:.4f} ms, sort form {times['sort']:.4f} ms "
+          f"(median, {card})", flush=True)
+
+    # One whole query through factorized_result, its edge artifacts
+    # cached: the host's time to dispatch it (no sync inside) beside the
+    # card's time from its first launch to its last.
+    from sigmod2018_tpu_torch.frontend.parser import parse_query
+
+    text = [t for t in workload_files("zipfbig")[1] if t != "F"][
+        MESSAGE_QUERY]
+    query = parse_query(text)
+    plan = factorized.plan_forest(query)
+    n_msgs = (sum(len(edges) for edges in plan.edges)
+              + len(factorized.down_edges(plan, query)))
+    want = factorized.execute_query_factorized_np(query, catalog)
+    if factorized.factorized_result(engine, query).line() != want:
+        raise AssertionError(f"factorized_result != the NumPy twin on "
+                             f"{text!r}")
+    host = []
+    for _ in range(15):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        factorized.factorized_result(engine, query)
+        host.append((time.perf_counter() - t0) * 1e3)
+    times["query_host"] = statistics.median(host)
+    times["query_card"] = median_ms(
+        lambda: factorized.factorized_result(engine, query), flush)
+    print(f"factorized query [zipfbig {text!r}] {n_msgs} messages, line "
+          f"equal to the NumPy twin's: host dispatch "
+          f"{times['query_host']:.4f} ms, first launch to last on the card "
+          f"{times['query_card']:.4f} ms (median, {card})", flush=True)
+    return times
+
+
 class _Feed:
     """Protocol stdin from a list of lines; notes when the first line
     after `Done` is requested, i.e. when prep has finished."""
@@ -469,18 +604,12 @@ PATHS = [("auto", "auto", RUNS_PER_WORKLOAD), ("radix", "radix", 1),
          ("qd", "qd", 1)]
 
 
-def phase_end_to_end(dev, card: str) -> dict:
-    """Every workload under every path: {path: summed kernel counts}."""
+def phase_end_to_end(dev, card: str, prepared: dict) -> tuple:
+    """Every workload under every path it runs under: ({path: summed
+    kernel counts}, {workload: K1 launches of one auto run})."""
     import sigmod2018_tpu_torch.ops as ops
     from sigmod2018_tpu_torch.config import EngineConfig
     from sigmod2018_tpu_torch.io.repl import run_protocol
-    from sigmod2018_tpu_torch.tools.workload import write_relations
-
-    prepared = {}
-    for name, params in WORKLOADS.items():
-        t0 = time.perf_counter()
-        write_relations(SMOKE_DIR / name, **params)
-        prepared[name] = time.perf_counter() - t0
 
     # Counts fused joins whose build side has a key table: there the
     # probe-only prefix-table member must stay off when radix or qd is
@@ -494,17 +623,13 @@ def phase_end_to_end(dev, card: str) -> dict:
         return real_fused(*args, **kw)
 
     ops.fused_join_auto = fused
-    totals = {}
+    totals, k1_per_run = {}, {}
     try:
         for label, algo, runs in PATHS:
             config = EngineConfig(platform="cuda", join_algo=algo)
             total = {"K1": 0, "K4": 0, "K5": 0}
-            for name in WORKLOADS:
-                src = ROOT / "workloads" / name
-                init = [str(SMOKE_DIR / name / r)
-                        for r in (src / f"{name}.init").read_text().split()]
-                work = (src / f"{name}.work").read_text().splitlines()
-                want = (src / f"{name}.result").read_text().splitlines()
+            for name in (WORKLOADS if label == "auto" else FORCED_WORKLOADS):
+                init, work, want = workload_files(name)
                 for run in range(1, runs + 1):
                     feed = _Feed(init + ["Done"] + work, len(init) + 1)
                     out = io.StringIO()
@@ -512,9 +637,9 @@ def phase_end_to_end(dev, card: str) -> dict:
                     torch.cuda.reset_peak_memory_stats(dev)
                     _reset_counts()  # count this run's launches only
                     t0 = time.perf_counter()
-                    run_protocol(feed, out, config)
+                    tiers = run_protocol(feed, out, config)
                     t1 = time.perf_counter()
-                    counts = _read_counts()
+                    counts = dict(_read_counts(), tiers=tiers)
                     got = out.getvalue().splitlines()
                     ok = sum(g == w for g, w in zip(got, want))
                     if len(got) != len(want) or ok != len(want):
@@ -524,14 +649,19 @@ def phase_end_to_end(dev, card: str) -> dict:
                             f"({len(got)} lines out)\n got: {got}\nwant: "
                             f"{want}")
                     _check_path(name, label, counts, table_joins)
+                    _check_tiers(name, label, tiers,
+                                 sum(line != "F" for line in work))
                     for k in total:
                         total[k] += counts[k]
+                    if label == "auto":
+                        k1_per_run[name] = counts["K1"]
                     print(f"end-to-end [{name} {label} run {run}] {ok}/"
                           f"{len(want)} lines equal {name}.result; "
                           f"launches K1 {counts['K1']} K4 {counts['K4']} "
                           f"K5 {counts['K5']}; radix branches "
                           f"{counts['radix branches']}, qd branches "
-                          f"{counts['qd branches']}; fused joins with a "
+                          f"{counts['qd branches']}; served by tier "
+                          f"{tiers}; fused joins with a "
                           f"key-table build side {len(table_joins)}; "
                           f"relations generated in {prepared[name]:.3f} s; "
                           f"prep {feed.t_serving - t0:.3f} s; timed phase "
@@ -542,14 +672,14 @@ def phase_end_to_end(dev, card: str) -> dict:
             totals[label] = total
     finally:
         ops.fused_join_auto = real_fused
-    return totals
+    return totals, k1_per_run
 
 
 def _check_path(name: str, label: str, counts: dict, table_joins) -> None:
     """The kernels of the path ran, and the forced member's kernel branch
     served at least one join."""
     if label == "auto":
-        if counts["K1"] <= 0:
+        if name in K1_WORKLOADS and counts["K1"] <= 0:
             raise AssertionError(f"{name}: K1 never launched under auto")
         return
     if counts["K4"] <= 0 or counts["K5"] <= 0:
@@ -562,6 +692,18 @@ def _check_path(name: str, label: str, counts: dict, table_joins) -> None:
         raise AssertionError("big under qd: no fused join had a key-table "
                              "build side, so the prefs_mode repair went "
                              "unexercised")
+
+
+def _check_tiers(name: str, label: str, tiers: dict, queries: int) -> None:
+    """Every query was counted under one tier, and under auto the tiers
+    that the workload exists to exercise served."""
+    if sum(tiers.values()) != queries:
+        raise AssertionError(f"{name} under {label}: tier counts {tiers} "
+                             f"do not add up to {queries} queries")
+    need = REQUIRED_TIERS.get(name, ()) if label == "auto" else ()
+    if need and not any(tiers[t] > 0 for t in need):
+        raise AssertionError(f"{name}: no query served by {' or '.join(need)}"
+                             f": {tiers}")
 
 
 def main() -> int:
@@ -590,7 +732,9 @@ def main() -> int:
     flush = torch.ones(1 << 23, dtype=torch.int64, device=dev)  # 64 MB
     k1_err, k1_times = phase_kernel(dev, card, flush)
     radix_kernels = phase_radix_kernels(dev, card, flush)
-    totals = phase_end_to_end(dev, card)
+    prepared = generate_workloads()
+    message_ms = phase_message(dev, card, flush)
+    totals, k1_per_run = phase_end_to_end(dev, card, prepared)
 
     k1_main, k1_big = k1_times[K1_MAIN_CASE], k1_times[K1_BIG_BUILD_CASE]
     k4_err, k4_times = radix_kernels["slot_fill"]
@@ -608,6 +752,7 @@ def main() -> int:
                  source="sigmod2018_tpu_torch/csrc/stair_counts.cu",
                  launches=totals["auto"]["K1"],
                  main_path_launches=totals["auto"]["K1"],
+                 main_path_launches_per_run=k1_per_run,
                  forced_launches=forced["K1"], max_abs_err=k1_err)
     rows = [
         dict(name="stair_counts", replaces="sigmod2018_tpu/ops/ms_join.py:123",
@@ -631,6 +776,11 @@ def main() -> int:
              forced_launches=forced["K5"], max_abs_err=k5_err,
              **timed(k5_times["radix 2^21"])),
     ]
+    print(f"factorized message at 2^21 rows: gather form "
+          f"{message_ms['gather']:.4f} ms, sort form "
+          f"{message_ms['sort']:.4f} ms; a query of it: host dispatch "
+          f"{message_ms['query_host']:.4f} ms, on the card "
+          f"{message_ms['query_card']:.4f} ms ({card})")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

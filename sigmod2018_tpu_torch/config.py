@@ -30,9 +30,17 @@ class EngineConfig:
     # disables.  Device cost: 4*(u+3) bytes per column.
     key_table_max: int = 1 << 22
 
-    # Intermediate-result row cap: a planned join order past it re-runs
-    # the query in text order.  0 disables the net.
+    # Intermediate-result row cap: a planned join order past it answers
+    # by message passing if the query is a forest (engine/factorized.py),
+    # else re-runs in text order.  0 disables the net.
     max_intermediate: int = 1 << 26
+
+    # Proactive factorized (Yannakakis message-passing) service: a
+    # forest-shaped query whose PLANNED largest intermediate reaches this
+    # many rows, or whose final estimate reaches 16x it, answers by
+    # message passing and materializes nothing
+    # (TorchEngine._maybe_factorized).  0 disables.
+    factorize_min: int = 1 << 22
 
     # Threads dispatching the queries of one batch: they overlap each
     # query's host syncs (one per intermediate join).
@@ -59,6 +67,7 @@ class EngineConfig:
             platform=_flag("S18_PLATFORM", "cuda"),
             join_algo=_flag("S18_JOIN", "auto"),
             key_table_max=int(_flag("S18_KEYTABLE", str(1 << 22))),
+            factorize_min=int(_flag("S18_FACTORIZE_MIN", str(1 << 22))),
             batch_workers=int(_flag("S18_WORKERS", "8")),
         )
 

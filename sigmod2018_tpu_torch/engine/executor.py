@@ -18,11 +18,23 @@ Host-sync discipline, as in the reference package:
 
 Empty results: every operator preserves emptiness, so final count == 0
 iff some operator went empty iff a NULL line (the contest's rule).
+
+Serving tiers (execute_async; `TorchEngine.tiers` counts which served):
+
+- `factorized_proactive`: a forest query whose PLANNED intermediates
+  reach config.factorize_min answers by message passing
+  (engine/factorized.py) and materializes nothing;
+- `materialized`: the planner's order, operator by operator;
+- `factorized_blowup`: the planner's order tripped max_intermediate (skew
+  the estimator missed) and the query is a forest;
+- `text_order`: it tripped and the query is cyclic or joins one binding
+  pair twice: the text order is the net, bounded by the technical cap.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -34,8 +46,10 @@ from ..frontend.parser import FilterPred, JoinPred, Query
 from ..ops import radix_join
 from ..ops.u64 import MASK64
 from ..planner import plan_joins
+from ..planner.join_order import estimate_cardinalities
 from ..storage.catalog import Catalog
 from ..utils.padding import pad_to, size_class
+from . import factorized
 
 Count = Union[int, torch.Tensor]  # host int or device 0-d integer tensor
 
@@ -54,7 +68,9 @@ class Component:
 
 class PendingResult:
     """A query's answer as one device vector [count, sum_0, ... sum_{V-1}]
-    (int64 bit patterns of u64).  `line()` fetches and formats."""
+    (int64 bit patterns of u64).  `line()` fetches and formats.  The
+    count slot only gates the NULL line, so the factorized path puts its
+    exact `exists` flag there."""
 
     def __init__(self, packed: torch.Tensor, num_views: int):
         self.packed = packed
@@ -89,6 +105,9 @@ class IntermediateBlowup(RuntimeError):
 # Technical ceiling on any materialized intermediate, independent of the
 # configurable max_intermediate guard.
 HARD_INTERMEDIATE_CAP = 1 << 27
+
+TIERS = ("materialized", "factorized_proactive", "factorized_blowup",
+         "text_order")
 
 
 def format_batch(results: Sequence) -> List[str]:
@@ -135,6 +154,14 @@ class TorchEngine:
         self._prefix_tables: Dict[Tuple[int, int, int], torch.Tensor] = {}
         self._radix_keys: Dict[Tuple[int, int], Optional[tuple]] = {}
         self._radix_vals: Dict[Tuple[int, int, int], torch.Tensor] = {}
+        # engine/factorized.py: per-edge (perm, lo, hi) and the per-text
+        # routing decision of _maybe_factorized
+        self._edge_ranks: Dict[Tuple[int, int, int, int], tuple] = {}
+        self._fact_choice: Dict[str, bool] = {}
+        # Queries answered per serving tier.  Incremented under a lock:
+        # io/repl.py dispatches a batch's queries from several threads.
+        self.tiers: Dict[str, int] = dict.fromkeys(TIERS, 0)
+        self._tier_lock = threading.Lock()
 
     # ---- storage ---------------------------------------------------------
 
@@ -271,14 +298,50 @@ class TorchEngine:
     def execute(self, query: Query) -> str:
         return self.execute_async(query).line()
 
+    def _served(self, tier: str, res: Result) -> Result:
+        with self._tier_lock:
+            self.tiers[tier] += 1
+        return res
+
+    def _maybe_factorized(self, query: Query) -> Optional[Result]:
+        """Proactive factorized service: a forest query with at least two
+        joins answers by message passing when an intermediate join of the
+        planner's order is estimated at config.factorize_min rows or
+        more, or the final (fused, never materialized) join at 16x that:
+        a final estimate that far out flags a hot-key blowup which the
+        intermediate estimates of Zipf workloads miss.  The decision is
+        cached per query text; None -> the materializing path serves."""
+        fmin = self.config.factorize_min
+        if not fmin or len(query.joins) < 2:
+            return None
+        use = self._fact_choice.get(query.text)
+        if use is None:
+            ests = estimate_cardinalities(query, self.catalog,
+                                          plan_joins(query, self.catalog))
+            use = (max(ests[:-1], default=0) >= fmin
+                   or ests[-1] >= fmin * 16)
+            if use and factorized.plan_forest(query) is None:
+                use = False  # cyclic or duplicate pair: not a forest
+            self._fact_choice[query.text] = use
+        return factorized.factorized_result(self, query) if use else None
+
     def execute_async(self, query: Query) -> Result:
+        res = self._maybe_factorized(query)
+        if res is not None:
+            return self._served("factorized_proactive", res)
         try:
-            return self._execute(query, use_planner=True, guard=True)
+            return self._served("materialized", self._execute(
+                query, use_planner=True, guard=True))
         except IntermediateBlowup:
-            # The planner's order exploded past max_intermediate (skew the
-            # estimator missed): the text order is the safety net, bounded
-            # by the technical cap.
-            return self._execute(query, use_planner=False, guard=False)
+            # The planner's order exploded past max_intermediate (hot-key
+            # skew the estimator missed).  A forest query is answered
+            # exactly without materializing anything; otherwise the text
+            # order is the safety net, bounded by the technical cap.
+            res = factorized.factorized_result(self, query)
+            if res is not None:
+                return self._served("factorized_blowup", res)
+            return self._served("text_order", self._execute(
+                query, use_planner=False, guard=False))
 
     def _execute(self, query: Query, use_planner: bool = True,
                  guard: bool = True) -> Result:

@@ -14,12 +14,15 @@ A malformed query line — text that does not parse, or that names a
 relation, binding or column that does not exist — answers a NULL line
 and the batch goes on, as in the reference package.  Any other error is
 a fault of the engine or the device and propagates.
+
+`run_protocol` returns how many queries each serving tier of the engine
+answered (`TorchEngine.tiers`); `main` prints that on stderr at exit.
 """
 
 from __future__ import annotations
 
 import sys
-from typing import IO, List, Optional
+from typing import IO, Dict, List, Optional
 
 from ..config import EngineConfig
 from ..frontend.parser import FilterPred, Query, parse_query
@@ -50,7 +53,7 @@ def _null_line(num_views: int) -> str:
 
 
 def run_protocol(stdin: IO[str], stdout: IO[str],
-                 config: Optional[EngineConfig] = None) -> None:
+                 config: Optional[EngineConfig] = None) -> Dict[str, int]:
     from concurrent.futures import ThreadPoolExecutor
 
     from ..engine.executor import TorchEngine, format_batch
@@ -113,10 +116,13 @@ def run_protocol(stdin: IO[str], stdout: IO[str],
     finally:
         if pool is not None:
             pool.shutdown()
+    return dict(engine.tiers)
 
 
 def main() -> None:
-    run_protocol(sys.stdin, sys.stdout)
+    tiers = run_protocol(sys.stdin, sys.stdout)
+    print("served by tier: " + " ".join(f"{k}={v}" for k, v in tiers.items()),
+          file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -68,6 +68,26 @@ class Catalog:
     def column(self, rid: int, cid: int) -> np.ndarray:
         return self.relations[rid].columns[cid]
 
+    def dense_column(self, rid: int, cid: int) -> np.ndarray:
+        """The column as an in-memory array, cached.  Base columns are
+        np.memmap views, and NumPy fancy indexing through a memmap goes
+        through its Python __getitem__ with extra copies; the host
+        executors (engine/oracle.py, the NumPy half of
+        engine/factorized.py) gather per query, so they read columns
+        through here.  In-memory relations pass through without a copy."""
+        cache = self.__dict__.setdefault("_dense_columns", {})
+        hit = cache.get((rid, cid))
+        if hit is None:
+            raw = self.relations[rid].columns[cid]
+            if isinstance(raw, np.memmap):
+                # np.ascontiguousarray of a contiguous memmap is a VIEW:
+                # force the copy into an anonymous array
+                hit = np.array(raw, dtype=raw.dtype, copy=True)
+            else:
+                hit = np.ascontiguousarray(raw)
+            cache[(rid, cid)] = hit
+        return hit
+
     def column_stats(self, rid: int, cid: int) -> ColumnStats:
         return self.stats[rid][cid]
 

@@ -1,6 +1,8 @@
 """chip_smoke.py's arithmetic, checked on the CPU: the bytes bounds of the
-kernel table against counts made by hand at the shapes of its cases, and
-the case builders against what their cases claim to exercise."""
+kernel table against counts made by hand at the shapes of its cases, the
+case builders against what their cases claim to exercise, the workload
+parameters against tools/regen_workloads.sh, the tier check, and the
+sort-form message against the port's."""
 
 import importlib.util
 from pathlib import Path
@@ -91,3 +93,72 @@ def test_shuffle_windows_keeps_each_window():
         assert sorted(out[b, :c].tolist()) == mat[b, :c].tolist()
         assert out[b, c:].tolist() == mat[b, c:].tolist()
     assert out[0].tolist() != mat[0].tolist()
+
+
+def test_workload_parameters_are_the_regen_script_s():
+    """WORKLOADS holds tools/regen_workloads.sh's generator arguments,
+    full size, and every workload's .work and .result are committed."""
+    script = (ROOT / "tools" / "regen_workloads.sh").read_text()
+    for name, p in cs.WORKLOADS.items():
+        line = next(ln for ln in script.splitlines()
+                    if f"workloads/{name} " in ln)
+        args = dict(zip(line.split()[3::2], line.split()[4::2]))
+        assert args["--profile"] == p["profile"]
+        for key in ("rows", "relations", "keyspace", "seed"):
+            assert int(args[f"--{key}"]) == p[key], (name, key)
+        assert int(args.get("--scale", 10)) == p.get("scale", 10)
+        work = (ROOT / "workloads" / name / f"{name}.work").read_text()
+        want = (ROOT / "workloads" / name / f"{name}.result").read_text()
+        assert (sum(ln != "F" for ln in work.splitlines())
+                == len(want.splitlines()) == int(args["--queries"]))
+    assert set(cs.FORCED_WORKLOADS) | set(cs.REQUIRED_TIERS) | set(
+        cs.K1_WORKLOADS) <= set(cs.WORKLOADS)
+
+
+@pytest.mark.parametrize("tiers,queries,name,ok", [
+    (dict(materialized=2, factorized_proactive=4, factorized_blowup=0,
+          text_order=0), 6, "zipfbig", True),
+    (dict(materialized=5, factorized_proactive=0, factorized_blowup=1,
+          text_order=0), 6, "zipfbig", True),
+    (dict(materialized=6, factorized_proactive=0, factorized_blowup=0,
+          text_order=0), 6, "zipfbig", False),   # no factorized tier
+    (dict(materialized=2, factorized_proactive=3, factorized_blowup=0,
+          text_order=0), 6, "zipfbig", False),   # a query uncounted
+    (dict(materialized=11, factorized_proactive=0, factorized_blowup=1,
+          text_order=0), 12, "scaled", False),   # proactive must serve
+    (dict(materialized=8, factorized_proactive=0, factorized_blowup=0,
+          text_order=0), 8, "bigdom", True),
+])
+def test_check_tiers(tiers, queries, name, ok):
+    if ok:
+        cs._check_tiers(name, "auto", tiers, queries)
+    else:
+        with pytest.raises(AssertionError):
+            cs._check_tiers(name, "auto", tiers, queries)
+
+
+def test_message_sort_form_equals_the_port_s_message():
+    """The yardstick chip_smoke times beside the port's gather form
+    computes the same message."""
+    from sigmod2018_tpu_torch.engine.factorized import message
+    from sigmod2018_tpu_torch.ops.sort_join import join_build
+    from sigmod2018_tpu_torch.ops.u64 import ranks_u64
+
+    gen = torch.Generator().manual_seed(5)
+    P, n = 1 << 10, 900
+    skeys = torch.randint(0, 50, (P,), generator=gen)
+    rkeys = torch.randint(0, 60, (P,), generator=gen)
+    sorted_keys, perm = join_build(skeys, n)
+    lo = ranks_u64(sorted_keys, rkeys, "left").to(torch.int32)
+    hi = ranks_u64(sorted_keys, rkeys, "right").to(torch.int32)
+    se = (torch.arange(P) < n) & (torch.rand(P, generator=gen) < 0.7)
+    sw = torch.randint(-(1 << 62), 1 << 62, (P,), generator=gen) * se
+    inv = torch.empty_like(perm)
+    inv[perm.long()] = torch.arange(P, dtype=perm.dtype)
+    got_w, got_e = message(sw, se, perm, lo, hi)
+    alt_w, alt_e = cs.message_sort_form(sw, se, inv, lo, hi)
+    assert torch.equal(got_w, alt_w) and torch.equal(got_e, alt_e)
+    # by hand: receiver row 0's sum over the live senders with its key
+    same = se & (skeys == rkeys[0])
+    assert int(got_w[0]) == int(sw[same].sum()) and \
+        bool(got_e[0]) == bool(same.any())

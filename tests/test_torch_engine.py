@@ -5,6 +5,8 @@ package on the catalog of tests/test_ms_engine.py (3 x 3000 rows):
   default size dispatch and again with RADIX_MIN_ROWS / EMIT_MS_MIN_ROWS
   at 256, so the staircase member serves on the CPU;
 - run_protocol on a small protocol stream with malformed lines;
+- the serving tiers (materialized, factorized_proactive,
+  factorized_blowup, text_order) against the tier JaxEngine chose;
 - equal parse IR, ColumnStats and DP join orders."""
 
 import dataclasses
@@ -173,11 +175,134 @@ def test_engine_uses_radix_artifacts_bit_exact(tmp_path, monkeypatch):
 
 
 def test_blowup_reruns_in_text_order(catalogs, expected, monkeypatch):
-    # every intermediate join trips the guard: the text order serves
+    # every intermediate join trips the guard: a forest query answers by
+    # message passing, the cyclic and the duplicate-pair query in text
+    # order
     assert _lines(catalogs[0], max_intermediate=1) == expected
     monkeypatch.setattr(texec, "HARD_INTERMEDIATE_CAP", 1)
     with pytest.raises(texec.IntermediateBlowup):
         _lines(catalogs[0])
+
+
+def _hot_columns(m=800):
+    # one hot key everywhere: every join order's intermediate is m^2
+    rng = np.random.default_rng(9)
+    return [[np.full(m, 7, np.uint64),
+             rng.integers(0, 1 << 40, m).astype(np.uint64),
+             rng.integers(0, 9, m).astype(np.uint64)] for _ in range(3)]
+
+
+def _fanout_columns(n=4000, dom=400):
+    # 10x fanout per join: a 4-relation chain's planned intermediates grow
+    rng = np.random.default_rng(3)
+    return [[rng.integers(0, dom, n).astype(np.uint64),
+             rng.integers(0, 1 << 20, n).astype(np.uint64),
+             rng.integers(0, dom, n).astype(np.uint64)] for _ in range(4)]
+
+
+def _dense_columns():
+    # tests/test_factorized.py::_catalog(seed=4, keyspace=8)
+    rng = np.random.default_rng(4)
+    return [[rng.integers(0, 8, size=n).astype(np.uint64) for _ in range(3)]
+            for n in (300, 250, 200, 150)]
+
+
+def _jax_tier(eng, query, monkeypatch):
+    """(line, tier) of JaxEngine.execute, the tier read off its calls."""
+    import sigmod2018_tpu.engine.factorized as jfact
+
+    seen = {"dispatch": 0, "factorized": 0}
+    real_fact, real_disp = jfact.factorized_result, eng._dispatch
+
+    def fact(*a):
+        res = real_fact(*a)
+        seen["factorized"] += res is not None  # None: not a forest
+        return res
+
+    def disp(*a, **k):
+        seen["dispatch"] += 1
+        return real_disp(*a, **k)
+
+    with monkeypatch.context() as m:
+        m.setattr(jfact, "factorized_result", fact)
+        m.setattr(eng, "_dispatch", disp)
+        line = eng.execute(query)
+    tier = {(0, 1): "factorized_proactive", (1, 0): "materialized",
+            (1, 1): "factorized_blowup", (2, 0): "text_order"}[
+                seen["dispatch"], seen["factorized"]]
+    return line, tier
+
+
+FANOUT_CHAIN = "0 1 2 3|0.0=1.2&1.2=2.0&2.0=3.2|1.1 0.1"
+ROUTING = [
+    # (columns, config, query, tier)
+    # the hot key's final estimate (800^3) reaches 16 x factorize_min, so
+    # the blow-up net serves only with the proactive tier switched off
+    (_hot_columns, dict(max_intermediate=1000, factorize_min=0),
+     "0 1 2|0.0=1.0&1.0=2.0|1.1 0.1", "factorized_blowup"),
+    (_hot_columns, dict(max_intermediate=1000),
+     "0 1 2|0.0=1.0&1.0=2.0|1.1 0.1", "factorized_proactive"),
+    (_dense_columns, dict(max_intermediate=1000),
+     "0 1 2|0.0=1.0&1.1=2.1&2.2=0.2|0.1 2.0", "text_order"),
+    (_fanout_columns, dict(factorize_min=1 << 16, max_intermediate=1 << 30),
+     FANOUT_CHAIN, "factorized_proactive"),
+    (_fanout_columns, dict(factorize_min=1 << 16, max_intermediate=1 << 30),
+     "0 1|0.0=1.2&0.1>1000000|0.1 1.1", "materialized"),
+    (_fanout_columns, dict(factorize_min=0, max_intermediate=1 << 30),
+     "0 1 2|0.0=1.2&1.2=2.0|1.1 0.1", "materialized"),
+]
+
+
+@pytest.mark.parametrize("columns,cfg,text,tier", ROUTING,
+                         ids=[f"{r[3]}-{i}" for i, r in enumerate(ROUTING)])
+def test_serving_tier_matches_jax(columns, cfg, text, tier, monkeypatch):
+    """The tier that answers, and _maybe_factorized's decision, equal
+    JaxEngine's on the same catalog and configuration; the line is the
+    oracle's (the factorized twin's where the oracle cannot materialize)."""
+    from sigmod2018_tpu.engine.factorized import execute_query_factorized_np
+
+    cols = columns()
+    tcat = Catalog([Relation(columns=c) for c in cols])
+    jcat = jcatalog.Catalog([JaxRelation(columns=c) for c in cols])
+    jq, tq = jparser.parse_query(text), tparser.parse_query(text)
+    want = (execute_query_factorized_np(jq, jcat) if columns is _hot_columns
+            else execute_query_numpy(jq, jcat, max_rows=1 << 28))
+    jeng = JaxEngine(jcat, dataclasses.replace(
+        JaxConfig(), compile_queries=False, **cfg))
+    jeng.prefetch()
+    assert _jax_tier(jeng, jq, monkeypatch) == (want, tier)
+    teng = texec.TorchEngine(tcat, EngineConfig(platform="cpu", **cfg))
+    teng.prefetch()
+    assert teng.execute(tq) == want
+    assert teng.tiers == dict(dict.fromkeys(texec.TIERS, 0), **{tier: 1})
+    assert ((teng._maybe_factorized(tq) is not None)
+            == (jeng._maybe_factorized(jq) is not None)
+            == (tier == "factorized_proactive"))
+    # the decision is cached per text and a second run takes the same tier
+    assert teng._fact_choice.get(text, False) == (
+        tier == "factorized_proactive")
+    assert teng.execute(tq) == want
+    assert teng.tiers[tier] == 2
+
+
+def test_estimator_error_propagates(catalogs, monkeypatch):
+    """An estimator fault is not swallowed into the materializing path."""
+    def boom(*a):
+        raise ZeroDivisionError("estimator")
+
+    monkeypatch.setattr(texec, "estimate_cardinalities", boom)
+    eng = texec.TorchEngine(catalogs[0], EngineConfig(platform="cpu"))
+    with pytest.raises(ZeroDivisionError):
+        eng.execute(tparser.parse_query(QUERIES[1]))
+    assert sum(eng.tiers.values()) == 0
+
+
+def test_factorize_min_from_env(monkeypatch):
+    assert EngineConfig().factorize_min == JaxConfig().factorize_min == 1 << 22
+    monkeypatch.setenv("S18_FACTORIZE_MIN", "4096")
+    monkeypatch.setenv("S18_PLATFORM", "cpu")
+    assert EngineConfig.from_env().factorize_min == 4096
+    assert JaxConfig.from_env().factorize_min == 4096
 
 
 def test_cuda_platform_without_card_raises(monkeypatch):
@@ -198,11 +323,40 @@ def test_run_protocol(tmp_path, catalogs, expected):
     stream = ([str(p) for p in paths] + ["Done"] + QUERIES[:4] + bad[:2]
               + ["F"] + bad[2:] + QUERIES[4:] + ["F", "Exit"])
     out = io.StringIO()
-    run_protocol(io.StringIO("\n".join(stream) + "\n"), out,
-                 EngineConfig(platform="cpu", batch_workers=4))
+    tiers = run_protocol(io.StringIO("\n".join(stream) + "\n"), out,
+                         EngineConfig(platform="cpu", batch_workers=4))
     want = (expected[:4] + ["NULL", "NULL"] + ["NULL NULL", "NULL"]
             + expected[4:])
     assert out.getvalue().splitlines() == want
+    # every well-formed query is counted under the tier that served it
+    assert tiers == dict(dict.fromkeys(texec.TIERS, 0),
+                         materialized=len(QUERIES))
+
+
+def test_main_prints_tier_counts(tmp_path):
+    """`python -m sigmod2018_tpu_torch`: the lines on stdout, the tier
+    counts on stderr at exit; S18_FACTORIZE_MIN is read."""
+    import os
+    import subprocess
+    import sys
+
+    paths = []
+    for i, cols in enumerate(_fanout_columns()):
+        paths.append(tmp_path / f"r{i}")
+        store_relation(Relation(columns=cols), paths[-1])
+    text = FANOUT_CHAIN
+    stream = "\n".join([str(p) for p in paths] + ["Done", text, QUERIES[0],
+                                                  "F"]) + "\n"
+    env = dict(os.environ, S18_PLATFORM="cpu", S18_FACTORIZE_MIN=str(1 << 16),
+               PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-m", "sigmod2018_tpu_torch"],
+                          input=stream, env=env, cwd=tmp_path,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert len(proc.stdout.splitlines()) == 2
+    assert proc.stderr.strip().splitlines()[-1] == (
+        "served by tier: materialized=1 factorized_proactive=1 "
+        "factorized_blowup=0 text_order=0")
 
 
 def test_parse_ir_matches():

@@ -4,15 +4,17 @@ generator's bytes, and (on a machine with a card) its CUDA kernels agree
 with their plain PyTorch versions."""
 
 import ast
+import hashlib
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
-from sigmod2018_tpu_torch.tools.workload import write_relations
+from sigmod2018_tpu_torch.tools.workload import write_relations, zipf_draws
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "sigmod2018_tpu_torch"
@@ -43,6 +45,23 @@ def test_imports_with_jax_blocked():
     assert int(proc.stdout.split()[-1]) >= 20  # every module was imported
 
 
+@pytest.mark.parametrize("module", ["frontend.sql", "engine.oracle",
+                                    "engine.factorized"])
+def test_blowup_path_modules_import_with_jax_blocked(module):
+    """The modules of the blow-up path, each on its own in a fresh
+    process: the oracle and the NumPy twin need no torch device either."""
+    code = _BLOCKED_IMPORT.split("import sigmod2018_tpu_torch")[0] + (
+        f"import importlib\n"
+        f"m = importlib.import_module('sigmod2018_tpu_torch.{module}')\n"
+        f"assert not any(n == 'jax' or n.startswith('jax.') "
+        f"or n.split('.')[0] == 'sigmod2018_tpu' for n in sys.modules)\n"
+        f"print(m.__name__)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == f"sigmod2018_tpu_torch.{module}"
+
+
 def test_no_module_imports_jax():
     for path in PKG.rglob("*.py"):
         for node in ast.walk(ast.parse(path.read_text())):
@@ -56,10 +75,46 @@ def test_no_module_imports_jax():
                            for n in names), (path, names)
 
 
-@pytest.mark.parametrize("profile,seed", [("uniform", 7), ("bigdom", 11)])
+# (seed, draws made before, size) -> sha1 of the draws clipped to 2^20 as
+# uint64, taken with NumPy 2.0.2's Generator.zipf(1.3, size)
+ZIPF_DIGESTS = {
+    (13, 5, 1_000_000): "de752d86edf52f49f7894c17b0f6718ca80cfc54",
+    (4, 5, 12_345): "49481c55ec35f9c17311074e53eedb4c9bc6e8c4",
+    (1, 5, 7): "3b6bf7fba8ea03ce5aaf1199d57d12c78b16028d",
+}
+
+
+@pytest.mark.parametrize("seed,before,size", list(ZIPF_DIGESTS))
+def test_zipf_draws_are_the_legacy_sampler(seed, before, size):
+    """The generator's own zipf sampler gives the values of NumPy up to
+    2.0 whatever NumPy runs it (Generator.zipf changed in 2.1, and the
+    committed .result files were made before), and leaves the stream
+    where that call leaves it."""
+    rng = np.random.default_rng(seed)
+    rng.integers(0, 1000, before)
+    got = zipf_draws(rng, 1.3, size)
+    clipped = np.minimum(got, 1 << 20).astype(np.uint64)
+    assert hashlib.sha1(clipped.tobytes()).hexdigest() == \
+        ZIPF_DIGESTS[seed, before, size]
+    assert got.dtype == np.int64 and got.min() >= 1
+    if np.lib.NumpyVersion(np.__version__) < "2.1.0":
+        ref = np.random.default_rng(seed)
+        ref.integers(0, 1000, before)
+        assert np.array_equal(got, ref.zipf(1.3, size=size))
+        assert rng.bit_generator.state == ref.bit_generator.state
+
+
+@pytest.mark.parametrize("profile,seed", [("uniform", 7), ("bigdom", 11),
+                                          ("zipfbig", 13), ("zipf", 4),
+                                          ("scaled", 3)])
 def test_generator_matches_reference_tool(tmp_path, profile, seed):
-    """The workloads/big and workloads/bigdom parameters at 5,000 rows:
-    tools/gen_workload.py and the port write identical relation files."""
+    """The workloads' parameters at 5,000 rows: tools/gen_workload.py and
+    the port write identical relation files.  The zipf profiles hold
+    under NumPy up to 2.0, whose sampler the port's generator copies."""
+    if (profile.startswith("zipf")
+            and np.lib.NumpyVersion(np.__version__) >= "2.1.0"):
+        pytest.skip("the reference tool draws Generator.zipf, which "
+                    "changed in NumPy 2.1")
     args = ["--profile", profile, "--rows", "5000", "--relations", "4",
             "--keyspace", "1048576", "--seed", str(seed)]
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT))
