@@ -33,26 +33,41 @@ Phases, each of which must pass:
 5. end to end: the relation binaries of workloads/big, bigdom, zipfbig,
    scaled and zipf are regenerated from their seeds
    (sigmod2018_tpu_torch.tools.workload, parameters of
-   tools/regen_workloads.sh, full size), `init + Done + .work` goes
-   through the port's `run_protocol` on the card under the auto member
-   choice (twice) and, for big and bigdom, with the radix and the
+   tools/regen_workloads.sh, full size), and `init + Done + .work` goes
+   through the port's protocol driver (`io.repl.serve`) on the card:
+   with the compiled engine (the default) under the auto member choice
+   twice, each run a fresh engine, the prep cache (S18_PREP_CACHE) an
+   emptied directory under build/smoke/ when the script starts; with the
+   operator engine (S18_COMPILE_QUERIES=0) under auto once; and, for big
+   and bigdom, with the compiled engine and the radix and the
    equi-depth members forced (once each).
    Every output line must equal the committed .result; under auto K1
    launches on the 2,000,000-row workloads, under radix and qd K4 and K5
    launch and the members' kernel branch serves at least one join per
    workload.  The engine's tier counts must add up to the queries sent;
    on zipfbig a factorized tier must serve at least one query and on
-   scaled `factorized_proactive` must.  Every kernel count is
+   scaled `factorized_proactive` must.  The second compiled auto run of
+   each workload, sized from the classes the first run learned, must
+   retry no query and serve none with host reads.  Each run prints the
+   engine, its counts and its host syncs (reads of intermediate totals
+   plus the forced members' branch reads).  Every kernel count is
    set to 0 just before each run and read just after it.  A count is of
    kernel launches: one K1 call launches two (the bounds pass and the
    merge pass), or the merge pass alone when host counts leave no live
-   row.
+   row;
+6. sync-free dispatch: on bigdom, a compiled engine with the learned
+   classes dispatches a query with an intermediate join of 2,000,000
+   rows twice (planned, then from the per-text fast path) under
+   `torch.cuda.set_sync_debug_mode("error")`, K1 launching inside; it is
+   fetched after the mode is reset and must equal its .result line.
 
-The line before the last is the kernel table as JSON (per kernel: time,
-plain and library times, bound and its share, launches on the path that
-runs it, on auto's main path, per auto run of each workload, and under
-the forced members); the last line is {"ok": true, "device": {...}}.  Any
-failure exits non-zero before either is printed, as does a machine
+Before them come the prep and timed phases of both engines per workload,
+side by side.  The line before the last is the kernel table as JSON (per
+kernel: time, plain and library times, bound and its share, launches on
+the path that runs it, on the compiled engine's auto main path, per
+compiled auto run of each workload, under the operator engine and under
+the forced members); the last line is {"ok": true, "device": {...}}.
+Any failure exits non-zero before either is printed, as does a machine
 without a CUDA device.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -62,6 +77,7 @@ from __future__ import annotations
 
 import io
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -73,6 +89,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 SMOKE_DIR = ROOT / "build" / "smoke"
+PREP_CACHE = SMOKE_DIR / "prep"  # learned size classes of this run only
 RUNS_PER_WORKLOAD = 2
 KERNEL_SOURCES = ("stair_counts", "slot_fill", "probe_counts")
 K1_MAIN_CASE = "2^21 keys<2^20"
@@ -599,17 +616,31 @@ def _read_counts() -> dict:
             "qd branches": dict(qd_join.BRANCHES)}
 
 
-# (label, fused-join member, runs per workload)
-PATHS = [("auto", "auto", RUNS_PER_WORKLOAD), ("radix", "radix", 1),
-         ("qd", "qd", 1)]
+# (label, compiled engine, fused-join member, runs per workload,
+# workloads).  The compiled auto runs come first: their first run starts
+# from an empty prep cache and teaches the second.
+PATHS = [("compiled auto", True, "auto", RUNS_PER_WORKLOAD, tuple(WORKLOADS)),
+         ("operator auto", False, "auto", 1, tuple(WORKLOADS)),
+         ("compiled radix", True, "radix", 1, FORCED_WORKLOADS),
+         ("compiled qd", True, "qd", 1, FORCED_WORKLOADS)]
+MAIN_PATH = "compiled auto"
+
+
+def host_syncs(counts: dict) -> int:
+    """Host reads of one run: the engine's reads of intermediate totals
+    and one branch read per forced radix or qd join."""
+    return (counts["engine"]["segment_reads"]
+            + sum(counts["radix branches"].values())
+            + sum(counts["qd branches"].values()))
 
 
 def phase_end_to_end(dev, card: str, prepared: dict) -> tuple:
     """Every workload under every path it runs under: ({path: summed
-    kernel counts}, {workload: K1 launches of one auto run})."""
+    kernel counts}, {path: {workload: K1 launches of its last run}},
+    {(path, workload, run): (prep s, timed s)})."""
     import sigmod2018_tpu_torch.ops as ops
     from sigmod2018_tpu_torch.config import EngineConfig
-    from sigmod2018_tpu_torch.io.repl import run_protocol
+    from sigmod2018_tpu_torch.io.repl import serve
 
     # Counts fused joins whose build side has a key table: there the
     # probe-only prefix-table member must stay off when radix or qd is
@@ -623,12 +654,14 @@ def phase_end_to_end(dev, card: str, prepared: dict) -> tuple:
         return real_fused(*args, **kw)
 
     ops.fused_join_auto = fused
-    totals, k1_per_run = {}, {}
+    totals, k1_per_run, phases = {}, {}, {}
     try:
-        for label, algo, runs in PATHS:
-            config = EngineConfig(platform="cuda", join_algo=algo)
+        for label, comp, algo, runs, names in PATHS:
+            config = EngineConfig(platform="cuda", join_algo=algo,
+                                  compile_queries=comp)
             total = {"K1": 0, "K4": 0, "K5": 0}
-            for name in (WORKLOADS if label == "auto" else FORCED_WORKLOADS):
+            k1_per_run[label] = {}
+            for name in names:
                 init, work, want = workload_files(name)
                 for run in range(1, runs + 1):
                     feed = _Feed(init + ["Done"] + work, len(init) + 1)
@@ -637,9 +670,11 @@ def phase_end_to_end(dev, card: str, prepared: dict) -> tuple:
                     torch.cuda.reset_peak_memory_stats(dev)
                     _reset_counts()  # count this run's launches only
                     t0 = time.perf_counter()
-                    tiers = run_protocol(feed, out, config)
+                    engine = serve(feed, out, config)
                     t1 = time.perf_counter()
-                    counts = dict(_read_counts(), tiers=tiers)
+                    tiers = dict(engine.tiers)
+                    counts = dict(_read_counts(), tiers=tiers,
+                                  engine=dict(engine.counts))
                     got = out.getvalue().splitlines()
                     ok = sum(g == w for g, w in zip(got, want))
                     if len(got) != len(want) or ok != len(want):
@@ -648,15 +683,20 @@ def phase_end_to_end(dev, card: str, prepared: dict) -> tuple:
                             f"{len(want)} lines equal the .result "
                             f"({len(got)} lines out)\n got: {got}\nwant: "
                             f"{want}")
-                    _check_path(name, label, counts, table_joins)
-                    _check_tiers(name, label, tiers,
+                    _check_path(name, algo, counts, table_joins)
+                    _check_tiers(name, algo, tiers,
                                  sum(line != "F" for line in work))
+                    if comp and algo == "auto" and run > 1:
+                        _check_taught(name, engine.counts)
                     for k in total:
                         total[k] += counts[k]
-                    if label == "auto":
-                        k1_per_run[name] = counts["K1"]
+                    k1_per_run[label][name] = counts["K1"]
+                    prep, timed = feed.t_serving - t0, t1 - feed.t_serving
+                    phases[label, name, run] = (prep, timed)
                     print(f"end-to-end [{name} {label} run {run}] {ok}/"
-                          f"{len(want)} lines equal {name}.result; "
+                          f"{len(want)} lines equal {name}.result; engine "
+                          f"{type(engine).__name__} {engine.counts}; host "
+                          f"syncs {host_syncs(counts)}; "
                           f"launches K1 {counts['K1']} K4 {counts['K4']} "
                           f"K5 {counts['K5']}; radix branches "
                           f"{counts['radix branches']}, qd branches "
@@ -664,20 +704,97 @@ def phase_end_to_end(dev, card: str, prepared: dict) -> tuple:
                           f"{tiers}; fused joins with a "
                           f"key-table build side {len(table_joins)}; "
                           f"relations generated in {prepared[name]:.3f} s; "
-                          f"prep {feed.t_serving - t0:.3f} s; timed phase "
-                          f"{t1 - feed.t_serving:.3f} s; peak device "
-                          f"memory "
+                          f"prep {prep:.3f} s; timed phase {timed:.3f} s; "
+                          f"peak device memory "
                           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f}"
                           f" GiB ({card})", flush=True)
+                    del engine  # the next run's peak holds its engine only
             totals[label] = total
     finally:
         ops.fused_join_auto = real_fused
-    return totals, k1_per_run
+    return totals, k1_per_run, phases
+
+
+def print_phases(phases: dict, card: str) -> None:
+    """Prep and timed phase of both engines per workload, side by side."""
+    for name in WORKLOADS:
+        op = phases["operator auto", name, 1]
+        c1 = phases["compiled auto", name, 1]
+        c2 = phases["compiled auto", name, 2]
+        print(f"phases [{name}] prep / timed s: operator engine {op[0]:.3f}"
+              f" / {op[1]:.3f}; compiled engine run 1 {c1[0]:.3f} / "
+              f"{c1[1]:.3f}, run 2 {c2[0]:.3f} / {c2[1]:.3f} ({card})",
+              flush=True)
+
+
+def _check_taught(name: str, counts: dict) -> None:
+    """A compiled run after one that taught every query its classes:
+    every query is sized beforehand and every size holds."""
+    if counts["retried"] or counts["incremental"]:
+        raise AssertionError(f"{name}, compiled run after a teaching run: "
+                             f"{counts['retried']} retried, "
+                             f"{counts['incremental']} served with host "
+                             f"reads ({counts})")
+
+
+def phase_sync_free(card: str) -> dict:
+    """One bigdom query with an intermediate join of 2,000,000 rows,
+    dispatched from the learned classes with host syncs made errors:
+    {"host_ms": dispatch ms of the planned and the fast-path dispatch}."""
+    from sigmod2018_tpu_torch.config import EngineConfig
+    from sigmod2018_tpu_torch.engine.compiled import CompiledTorchEngine
+    from sigmod2018_tpu_torch.engine.executor import format_batch
+    from sigmod2018_tpu_torch.frontend.parser import parse_query
+    from sigmod2018_tpu_torch.ops import ms_join
+    from sigmod2018_tpu_torch.storage.catalog import Catalog
+
+    init, work, want = workload_files("bigdom")
+    engine = CompiledTorchEngine(Catalog.from_files(init),
+                                 EngineConfig(platform="cuda"))
+    engine.prefetch()
+    texts = [t for t in work if t != "F"]
+    pick = None
+    for i, text in enumerate(texts):
+        learned = engine._learned(parse_query(text))
+        if learned and max(learned) >= 2_000_000:
+            pick = i
+            break
+    if pick is None:
+        raise AssertionError("bigdom: no learned query with an "
+                             "intermediate join of 2,000,000 rows")
+    query = parse_query(texts[pick])
+    results, host_ms = [], []
+    _reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            results.append(engine.execute_async(query))
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    k1 = ms_join.LAUNCHES
+    lines = format_batch(results)
+    if lines != [want[pick]] * 2:
+        raise AssertionError(f"sync-free bigdom query {texts[pick]!r}: "
+                             f"{lines} != {want[pick]!r}")
+    if k1 <= 0:
+        raise AssertionError("sync-free bigdom query: K1 never launched")
+    if engine.counts["learned"] != 2 or engine.counts["retried"]:
+        raise AssertionError(f"sync-free bigdom query not served from its "
+                             f"learned classes: {engine.counts}")
+    print(f"sync-free dispatch [bigdom query {pick + 1} {texts[pick]!r}, "
+          f"classes {engine._learned(query)}] no host sync under "
+          f"set_sync_debug_mode('error'); K1 {k1} launches; line equal "
+          f"to bigdom.result; host dispatch {host_ms[0]:.3f} ms planned, "
+          f"{host_ms[1]:.3f} ms fast path ({card})", flush=True)
+    return {"host_ms": host_ms}
 
 
 def _check_path(name: str, label: str, counts: dict, table_joins) -> None:
     """The kernels of the path ran, and the forced member's kernel branch
-    served at least one join."""
+    served at least one join.  `label` is the fused-join member."""
     if label == "auto":
         if name in K1_WORKLOADS and counts["K1"] <= 0:
             raise AssertionError(f"{name}: K1 never launched under auto")
@@ -734,25 +851,32 @@ def main() -> int:
     radix_kernels = phase_radix_kernels(dev, card, flush)
     prepared = generate_workloads()
     message_ms = phase_message(dev, card, flush)
-    totals, k1_per_run = phase_end_to_end(dev, card, prepared)
+    shutil.rmtree(PREP_CACHE, ignore_errors=True)
+    PREP_CACHE.mkdir(parents=True)
+    os.environ["S18_PREP_CACHE"] = str(PREP_CACHE)
+    totals, k1_per_run, phases = phase_end_to_end(dev, card, prepared)
+    phase_sync_free(card)
+    print_phases(phases, card)
 
     k1_main, k1_big = k1_times[K1_MAIN_CASE], k1_times[K1_BIG_BUILD_CASE]
     k4_err, k4_times = radix_kernels["slot_fill"]
     k5_err, k5_times = radix_kernels["probe_counts"]
-    forced = {k: totals["radix"][k] + totals["qd"][k]
+    forced = {k: totals["compiled radix"][k] + totals["compiled qd"][k]
               for k in ("K1", "K4", "K5")}
 
     def timed(t):  # (kernel, plain, library, bound) ms of one case
         return dict(ms=t[0], plain_ms=t[1], library_ms=t[2], bound_ms=t[3],
                     bound_by="bytes", bound_share=t[3] / t[0])
 
-    # `launches`: the path that runs the kernel (auto for K1, the forced
-    # members for K4 and K5); `main_path_launches`: auto's
+    # `launches`: the path that runs the kernel (the compiled engine under
+    # auto for K1, the forced members for K4 and K5);
+    # `main_path_launches`: the compiled engine's under auto
+    main = totals[MAIN_PATH]
     stair = dict(route="cuda",
                  source="sigmod2018_tpu_torch/csrc/stair_counts.cu",
-                 launches=totals["auto"]["K1"],
-                 main_path_launches=totals["auto"]["K1"],
-                 main_path_launches_per_run=k1_per_run,
+                 launches=main["K1"], main_path_launches=main["K1"],
+                 main_path_launches_per_run=k1_per_run[MAIN_PATH],
+                 operator_engine_launches_per_run=k1_per_run["operator auto"],
                  forced_launches=forced["K1"], max_abs_err=k1_err)
     rows = [
         dict(name="stair_counts", replaces="sigmod2018_tpu/ops/ms_join.py:123",
@@ -766,13 +890,13 @@ def main() -> int:
         dict(name="slot_fill", route="cuda",
              source="sigmod2018_tpu_torch/csrc/slot_fill.cu",
              replaces="sigmod2018_tpu/ops/radix_join.py:218",
-             launches=forced["K4"], main_path_launches=totals["auto"]["K4"],
+             launches=forced["K4"], main_path_launches=main["K4"],
              forced_launches=forced["K4"], max_abs_err=k4_err,
              **timed(k4_times["radix 2^21 build"])),
         dict(name="probe_counts", route="cuda",
              source="sigmod2018_tpu_torch/csrc/probe_counts.cu",
              replaces="sigmod2018_tpu/ops/radix_join.py:282",
-             launches=forced["K5"], main_path_launches=totals["auto"]["K5"],
+             launches=forced["K5"], main_path_launches=main["K5"],
              forced_launches=forced["K5"], max_abs_err=k5_err,
              **timed(k5_times["radix 2^21"])),
     ]

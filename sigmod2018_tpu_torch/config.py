@@ -1,5 +1,5 @@
 """Engine configuration: the fields of `sigmod2018_tpu/config.py` that the
-operator-granular engine reads, under the same environment knobs.  The
+port's engines read, under the same environment knobs and defaults.  The
 reference's debugging switches S18_OPTIMIZE, S18_FUSE and S18_PRESORT
 are fixed on here: the DP join order, the fused final join and the
 prep-time sorts always run."""
@@ -46,6 +46,26 @@ class EngineConfig:
     # query's host syncs (one per intermediate join).
     batch_workers: int = 8
 
+    # Whole-query engine (engine/compiled.py::CompiledTorchEngine): a
+    # query's device work is dispatched in one go when the size class of
+    # every intermediate join is known or guessed, and fetched with the
+    # batch.  False serves with the operator-granular TorchEngine, which
+    # reads each intermediate join's size to the host.
+    compile_queries: bool = True
+
+    # Speculative intermediate sizing: guess each intermediate join's
+    # size class as the planner's estimate x spec_margin; a guess that
+    # was too small is found when the batch is fetched and the query
+    # re-runs with one host read per intermediate join.  A guess past
+    # spec_max rows is not made (the query takes that path at once).
+    speculate: bool = True
+    spec_margin: int = 8
+    spec_max: int = 1 << 22
+
+    # Replay the persisted serving history (the learned size classes) in
+    # prefetch, so every known text has run once before the timed phase.
+    warm_replay: bool = False
+
     def device(self) -> torch.device:
         if self.platform == "cuda":
             if not torch.cuda.is_available():
@@ -69,6 +89,11 @@ class EngineConfig:
             key_table_max=int(_flag("S18_KEYTABLE", str(1 << 22))),
             factorize_min=int(_flag("S18_FACTORIZE_MIN", str(1 << 22))),
             batch_workers=int(_flag("S18_WORKERS", "8")),
+            compile_queries=_flag("S18_COMPILE_QUERIES", "1") != "0",
+            speculate=_flag("S18_SPECULATE", "1") != "0",
+            spec_margin=int(_flag("S18_SPEC_MARGIN", "8")),
+            spec_max=int(_flag("S18_SPEC_MAX", str(1 << 22))),
+            warm_replay=_flag("S18_WARM_REPLAY", "0") != "0",
         )
 
 

@@ -16,6 +16,12 @@ Host-sync discipline, as in the reference package:
   vector [count, sum_0, ..sum_V]; format_batch fetches a whole batch's
   vectors in one copy.
 
+A query's device work is one generator, `TorchEngine._steps`, which
+stops at each intermediate join for its output size.  This engine
+answers with the total read to the host (`_sized`);
+engine/compiled.py answers with size classes known or guessed
+beforehand, and reads nothing.
+
 Empty results: every operator preserves emptiness, so final count == 0
 iff some operator went empty iff a NULL line (the contest's rule).
 
@@ -161,6 +167,9 @@ class TorchEngine:
         # Queries answered per serving tier.  Incremented under a lock:
         # io/repl.py dispatches a batch's queries from several threads.
         self.tiers: Dict[str, int] = dict.fromkeys(TIERS, 0)
+        # Host reads of intermediate-join totals (one per intermediate
+        # join here); the compiled engine adds its speculation counts.
+        self.counts: Dict[str, int] = {"segment_reads": 0}
         self._tier_lock = threading.Lock()
 
     # ---- storage ---------------------------------------------------------
@@ -329,22 +338,77 @@ class TorchEngine:
         res = self._maybe_factorized(query)
         if res is not None:
             return self._served("factorized_proactive", res)
+        return self._execute_async_device(query)
+
+    def _execute_async_device(self, query: Query) -> Result:
+        """The materializing tiers: the planner's order, and the blow-up
+        net behind it.  The compiled engine overrides this."""
         try:
             return self._served("materialized", self._execute(
                 query, use_planner=True, guard=True))
         except IntermediateBlowup:
-            # The planner's order exploded past max_intermediate (hot-key
-            # skew the estimator missed).  A forest query is answered
-            # exactly without materializing anything; otherwise the text
-            # order is the safety net, bounded by the technical cap.
-            res = factorized.factorized_result(self, query)
-            if res is not None:
-                return self._served("factorized_blowup", res)
-            return self._served("text_order", self._execute(
-                query, use_planner=False, guard=False))
+            return self._blowup_net(query)
+
+    def _blowup_net(self, query: Query) -> Result:
+        """The planner's order exploded past max_intermediate (hot-key
+        skew the estimator missed).  A forest query is answered exactly
+        without materializing anything; otherwise the text order is the
+        safety net, bounded by the technical cap."""
+        res = factorized.factorized_result(self, query)
+        if res is not None:
+            return self._served("factorized_blowup", res)
+        return self._served("text_order", self._execute(
+            query, use_planner=False, guard=False))
 
     def _execute(self, query: Query, use_planner: bool = True,
                  guard: bool = True) -> Result:
+        joins = query.joins
+        if use_planner and len(joins) > 1:
+            joins = plan_joins(query, self.catalog)
+
+        def col_of(binding: int, column: int) -> Tuple[torch.Tensor, int]:
+            return self.device_column(query.relations[binding], column)
+
+        packed, _ = self._sized(self._steps(query, joins, col_of), guard)
+        if packed is None:
+            return NullResult(len(query.views))
+        return PendingResult(packed, len(query.views))
+
+    def _count(self, name: str, n: int = 1) -> None:
+        with self._tier_lock:
+            self.counts[name] += n
+
+    def _sized(self, steps, guard: bool):
+        """Run a query's steps (`_steps`) to the end, sizing every
+        intermediate join from its total read to the host: the one sync
+        of an intermediate join.  (packed vector, or None when a join
+        came out empty; the size classes used)."""
+        classes: List[int] = []
+        try:
+            total_dev = next(steps)
+            while True:
+                total = int(total_dev)
+                self._count("segment_reads")
+                if (guard and 0 < self.config.max_intermediate < total) or (
+                        total > HARD_INTERMEDIATE_CAP):
+                    raise IntermediateBlowup(total)
+                if total == 0:
+                    steps.close()
+                    return None, tuple(classes)
+                classes.append(size_class(total))
+                total_dev = steps.send((classes[-1], total))
+        except StopIteration as done:
+            return done.value, tuple(classes)
+
+    def _steps(self, query: Query, joins: Sequence[JoinPred], col_of):
+        """A query's device work in `joins` order, as a generator.  At
+        each intermediate join it yields the join's total (0-d int64
+        device tensor) and takes back (P, count): the padded size of the
+        join's output and its live count (a host int, or a 0-d device
+        tensor when the output is speculatively sized and may have been
+        cut at P).  It returns the packed [count, sum_0, ..] vector, or
+        None when the host already knows the result is empty.  Only the
+        cartesian phase reads from the device; nothing else here does."""
         components: List[Component] = []
 
         def find(binding: int) -> Optional[Component]:
@@ -352,9 +416,6 @@ class TorchEngine:
                 if binding in c.bindings:
                     return c
             return None
-
-        def col_of(binding: int, column: int) -> Tuple[torch.Tensor, int]:
-            return self.device_column(query.relations[binding], column)
 
         # ---- phase 1: filters and self-joins (no host syncs) -------------
         for pred in query.filters_and_selfjoins:
@@ -364,10 +425,6 @@ class TorchEngine:
                 self._exec_selfjoin(components, find, col_of, pred)
 
         # ---- phase 2: joins ----------------------------------------------
-        joins = query.joins
-        if use_planner and len(joins) > 1:
-            joins = plan_joins(query, self.catalog)
-
         view_bindings = {b for b, _ in query.views}
         for idx, jp in enumerate(joins):
             comp_l = find(jp.binding1)
@@ -394,17 +451,18 @@ class TorchEngine:
                     return self._exec_join_fused(query, col_of, comp_l,
                                                  comp_r, jp)
 
-            comp = self._exec_join(components, comp_l, comp_r, col_of, jp,
-                                   query, guard=guard)
-            if comp.count == 0:  # host int: the sized emit observed zero
-                return NullResult(len(query.views))
+            build_left, perm, lo, ccum, total = self._join_counts(
+                query, col_of, comp_l, comp_r, jp)
+            P, count = yield total
+            self._join_emit(components, comp_l, comp_r, jp, build_left,
+                            perm, lo, ccum, total, P, count)
 
         # ---- phase 3: cartesian of leftovers ------------------------------
         for b in view_bindings:
             if find(b) is None:
                 n = self.catalog.relation(query.relations[b]).num_tuples
                 if n == 0:
-                    return NullResult(len(query.views))
+                    return None
                 P = size_class(n)
                 ident = torch.arange(P, dtype=torch.int32,
                                      device=self.device)[None, :]
@@ -413,7 +471,7 @@ class TorchEngine:
             c1, c2 = components[0], components[1]
             total = self._host_count(c1) * self._host_count(c2)
             if total == 0:
-                return NullResult(len(query.views))
+                return None
             P = size_class(total)
             i1, i2 = ops.cartesian_indices(c1.count, c2.count, P,
                                            self.device)
@@ -423,7 +481,7 @@ class TorchEngine:
                                      total)] + components[2:])
 
         if not components:
-            return NullResult(len(query.views))
+            return None
 
         # ---- phase 4: checksums (single packed fetch) ---------------------
         comp = components[0]
@@ -432,7 +490,7 @@ class TorchEngine:
             coldev, _ = col_of(b, c)
             parts.append(ops.checksum(coldev, comp.row(b),
                                       comp.count).reshape(1))
-        return PendingResult(torch.cat(parts), len(query.views))
+        return torch.cat(parts)
 
     # ---- operator implementations ----------------------------------------
 
@@ -501,9 +559,11 @@ class TorchEngine:
             build_left = keys_l.shape[0] <= keys_r.shape[0]
         return build_left, (tbl_l if build_left else tbl_r)
 
-    def _exec_join(self, components, comp_l, comp_r, col_of,
-                   jp: JoinPred, query: Query,
-                   guard: bool = True) -> Component:
+    def _join_counts(self, query: Query, col_of, comp_l, comp_r,
+                     jp: JoinPred):
+        """Probe side of an intermediate join: (build_left, perm, lo,
+        ccum, total) with the match ranges in the build side's sorted
+        coordinates and the total as a 0-d device tensor."""
         keys_l, n_l = self._join_keys(col_of, comp_l, jp.binding1,
                                       jp.column1)
         keys_r, n_r = self._join_keys(col_of, comp_r, jp.binding2,
@@ -518,8 +578,8 @@ class TorchEngine:
         if tbl_b is not None:
             # Key-table path: match ranges are two gathers, no sort.
             _, perm = self.device_sorted_column(query.relations[b], c)
-            lo, cnt, ccum, total_dev = ops.join_probe_count_table(
-                tbl_b, keys_p, n_p)
+            lo, _, ccum, total = ops.join_probe_count_table(tbl_b, keys_p,
+                                                            n_p)
         else:
             if comp_b is None:
                 # Unfiltered base build side: prep-time sort.
@@ -527,18 +587,16 @@ class TorchEngine:
                     query.relations[b], c)
             else:
                 sorted_keys, perm = ops.join_build(keys_b, n_b)
-            lo, cnt, ccum, total_dev = ops.join_probe_count_auto(
+            lo, _, ccum, total = ops.join_probe_count_auto(
                 sorted_keys, n_b, keys_p, n_p)
-        total = int(total_dev)  # the one required sync: sizes the emit
-        if (guard and 0 < self.config.max_intermediate < total) or (
-                total > HARD_INTERMEDIATE_CAP):
-            raise IntermediateBlowup(total)
-        if total == 0:
-            return Component((jp.binding1, jp.binding2),
-                             torch.zeros((2, size_class(0)),
-                                         dtype=torch.int32,
-                                         device=self.device), 0)
-        P = size_class(total)
+        return build_left, perm, lo, ccum, total
+
+    @staticmethod
+    def _join_emit(components, comp_l, comp_r, jp: JoinPred,
+                   build_left: bool, perm, lo, ccum, total, P: int,
+                   count: Count) -> None:
+        """Emit side of an intermediate join: the output component of P
+        padded rows and `count` live ones replaces both inputs."""
         bpos, ppos = ops.join_emit(perm, lo, ccum, total, out_size=P)
         pos_l, pos_r = (bpos, ppos) if build_left else (ppos, bpos)
 
@@ -553,16 +611,15 @@ class TorchEngine:
             else:
                 rows.append(pos[None, :])
                 bindings.append(binding)
-        new = Component(tuple(bindings), torch.cat(rows, 0), total)
-        components.append(new)
-        return new
+        components.append(Component(tuple(bindings), torch.cat(rows, 0),
+                                    count))
 
     def _exec_join_fused(self, query: Query, col_of, comp_l, comp_r,
-                         jp: JoinPred) -> PendingResult:
+                         jp: JoinPred) -> torch.Tensor:
         """Last join + checksums (ops.fused_join_auto): the final
         intermediate is never materialized and needs no sync.  Only the
         real projection columns of each side enter the member; the packed
-        vector is assembled per view."""
+        vector is assembled per view and returned."""
         keys_l, n_l = self._join_keys(col_of, comp_l, jp.binding1,
                                       jp.column1)
         keys_r, n_r = self._join_keys(col_of, comp_r, jp.binding2,
@@ -655,4 +712,4 @@ class TorchEngine:
         for vi in range(len(query.views)):
             s = sums_b[b_idx[vi]] if vi in b_idx else sums_p[p_idx[vi]]
             parts.append(s.reshape(1))
-        return PendingResult(torch.cat(parts), len(query.views))
+        return torch.cat(parts)

@@ -15,8 +15,12 @@ relation, binding or column that does not exist — answers a NULL line
 and the batch goes on, as in the reference package.  Any other error is
 a fault of the engine or the device and propagates.
 
-`run_protocol` returns how many queries each serving tier of the engine
-answered (`TorchEngine.tiers`); `main` prints that on stderr at exit.
+The engine is `CompiledTorchEngine` (engine/compiled.py), or the
+operator-granular `TorchEngine` under S18_COMPILE_QUERIES=0.  `serve`
+returns it; `run_protocol` returns how many queries each serving tier
+answered (`TorchEngine.tiers`).  `main` prints the engine's counts (host
+reads of intermediate totals and, for the compiled engine, how each
+query was sized) and then the tiers on stderr at exit.
 """
 
 from __future__ import annotations
@@ -52,10 +56,12 @@ def _null_line(num_views: int) -> str:
     return " ".join(["NULL"] * max(num_views, 1))
 
 
-def run_protocol(stdin: IO[str], stdout: IO[str],
-                 config: Optional[EngineConfig] = None) -> Dict[str, int]:
+def serve(stdin: IO[str], stdout: IO[str],
+          config: Optional[EngineConfig] = None):
+    """Answer the protocol on stdin; returns the engine that served."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from ..engine.compiled import CompiledTorchEngine
     from ..engine.executor import TorchEngine, format_batch
 
     config = config or EngineConfig.from_env()
@@ -68,7 +74,8 @@ def run_protocol(stdin: IO[str], stdout: IO[str],
             paths.append(line)
 
     catalog = Catalog.from_files(paths)
-    engine = TorchEngine(catalog, config)
+    engine = (CompiledTorchEngine if config.compile_queries
+              else TorchEngine)(catalog, config)
     engine.prefetch()
 
     def start(q):
@@ -116,13 +123,20 @@ def run_protocol(stdin: IO[str], stdout: IO[str],
     finally:
         if pool is not None:
             pool.shutdown()
-    return dict(engine.tiers)
+    return engine
+
+
+def run_protocol(stdin: IO[str], stdout: IO[str],
+                 config: Optional[EngineConfig] = None) -> Dict[str, int]:
+    return dict(serve(stdin, stdout, config).tiers)
 
 
 def main() -> None:
-    tiers = run_protocol(sys.stdin, sys.stdout)
-    print("served by tier: " + " ".join(f"{k}={v}" for k, v in tiers.items()),
-          file=sys.stderr)
+    engine = serve(sys.stdin, sys.stdout)
+    print(f"engine {type(engine).__name__}: " + " ".join(
+        f"{k}={v}" for k, v in engine.counts.items()), file=sys.stderr)
+    print("served by tier: " + " ".join(
+        f"{k}={v}" for k, v in engine.tiers.items()), file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -85,11 +85,14 @@ def join_probe_count_table(cumcnt: torch.Tensor, probe_keys: torch.Tensor,
 
 
 def join_emit(perm: torch.Tensor, lo: torch.Tensor, ccum: torch.Tensor,
-              total: int, out_size: int):
+              total: Count, out_size: int):
     """Expand match ranges into dense (build_pos, probe_pos) int32 pairs.
 
     build_pos indexes the original (unsorted, padded) build input,
-    probe_pos the probe input; slots >= total hold 0.  Each non-empty
+    probe_pos the probe input; slots >= total hold 0.  `total` is a host
+    int or the probe's 0-d device total: a speculatively sized emit
+    (engine/compiled.py) reads nothing back, and when its class is below
+    the total it keeps the first out_size pairs.  Each non-empty
     probe row scatters its index (+1) at its first output slot (slots
     strictly increase, so no collisions) and a running max fills every
     slot with its owning row: O(out_size + Pp)."""
@@ -103,7 +106,8 @@ def join_emit(perm: torch.Tensor, lo: torch.Tensor, ccum: torch.Tensor,
                           reduce="amax")
     i = torch.clamp(torch.cummax(owner[:out_size], 0).values - 1, 0, Pp - 1)
     t = torch.arange(out_size, device=dev)
-    valid = t < min(int(total), out_size)
+    valid = t < (torch.clamp(total, max=out_size)
+                 if isinstance(total, torch.Tensor) else min(total, out_size))
     bidx = torch.where(valid, lo.index_select(0, i) + (t - starts[i]), 0)
     build_pos = torch.where(valid, perm.index_select(0, bidx), 0)
     probe_pos = torch.where(valid, i, 0)

@@ -5,12 +5,17 @@ min/max, row count, exact distinct count and a 1-bucket most-common-value
 sketch, all from one sort-unique pass per column on the host.  They feed
 only the planner, so they never affect a result.  The native C++ loader
 and the on-disk stats cache of the reference package are not ported yet.
+
+`identity_digest` and `prep_cache_dir` key the prep artifacts kept on
+disk across processes (the compiled engine's learned size classes).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+import hashlib
+import os
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -45,13 +50,43 @@ def compute_column_stats(col: np.ndarray) -> ColumnStats:
                        int(counts[top]), int(uniq[top]))
 
 
+def identity_digest(paths: Sequence[str]) -> Optional[str]:
+    """Identity of a relation set: sha1 over (basename, size, mtime_ns)
+    per file, as in the reference package.  None when a file cannot be
+    stat'ed."""
+    h = hashlib.sha1()
+    try:
+        for p in paths:
+            st = os.stat(p)
+            h.update(f"{os.path.basename(p)}:{st.st_size}:"
+                     f"{st.st_mtime_ns}\n".encode())
+    except OSError:
+        return None
+    return h.hexdigest()
+
+
+def prep_cache_dir() -> Optional[str]:
+    """Directory of the prep artifacts, or None when disabled:
+    S18_PREP_CACHE=0 disables, S18_PREP_CACHE=<dir> relocates.  The
+    default is the port's own, so the two packages never read each
+    other's files."""
+    loc = os.environ.get("S18_PREP_CACHE", "")
+    if loc == "0":
+        return None
+    return loc or os.path.join(os.path.expanduser("~"), ".cache",
+                               "sigmod2018_tpu_torch")
+
+
 class Catalog:
-    """All loaded relations, indexed by relation id (file order on stdin)."""
+    """All loaded relations, indexed by relation id (file order on stdin).
+    `source_paths` are the files they came from (empty when built in
+    memory)."""
 
     def __init__(self, relations: Sequence[Relation],
                  compute_stats: bool = True):
         self.relations: List[Relation] = list(relations)
         self.stats: List[List[ColumnStats]] = []
+        self.source_paths: List[str] = []
         if compute_stats:
             self.stats = [[compute_column_stats(col) for col in rel.columns]
                           for rel in self.relations]
@@ -59,8 +94,10 @@ class Catalog:
     @staticmethod
     def from_files(paths: Sequence[str],
                    compute_stats: bool = True) -> "Catalog":
-        return Catalog([load_relation(p) for p in paths],
-                       compute_stats=compute_stats)
+        cat = Catalog([load_relation(p) for p in paths],
+                      compute_stats=compute_stats)
+        cat.source_paths = list(paths)
+        return cat
 
     def relation(self, rid: int) -> Relation:
         return self.relations[rid]

@@ -1,8 +1,9 @@
 """chip_smoke.py's arithmetic, checked on the CPU: the bytes bounds of the
 kernel table against counts made by hand at the shapes of its cases, the
 case builders against what their cases claim to exercise, the workload
-parameters against tools/regen_workloads.sh, the tier check, and the
-sort-form message against the port's."""
+parameters against tools/regen_workloads.sh, the tier check, the
+checks of the compiled engine's runs, and the sort-form message against
+the port's."""
 
 import importlib.util
 from pathlib import Path
@@ -135,6 +136,45 @@ def test_check_tiers(tiers, queries, name, ok):
     else:
         with pytest.raises(AssertionError):
             cs._check_tiers(name, "auto", tiers, queries)
+
+
+def test_paths_put_the_main_path_first():
+    """The compiled engine under auto runs first (its first run must
+    start from the emptied prep cache and teach the second), on every
+    workload, twice; the operator engine runs every workload once."""
+    label, compiled, algo, runs, names = cs.PATHS[0]
+    assert (label, compiled, algo, runs) == (cs.MAIN_PATH, True, "auto", 2)
+    assert set(names) == set(cs.WORKLOADS)
+    by_label = {p[0]: p for p in cs.PATHS}
+    assert by_label["operator auto"][1:4] == (False, "auto", 1)
+    assert set(by_label["operator auto"][4]) == set(cs.WORKLOADS)
+    for algo in ("radix", "qd"):
+        assert by_label[f"compiled {algo}"][1:] == (True, algo, 1,
+                                                    cs.FORCED_WORKLOADS)
+    assert cs.PREP_CACHE.parent == cs.SMOKE_DIR
+
+
+def test_host_syncs_add_the_members_branch_reads():
+    counts = {"engine": {"segment_reads": 3, "retried": 1},
+              "radix branches": {"kernel": 4, "merge": 1},
+              "qd branches": {"kernel": 2, "merge": 0}}
+    assert cs.host_syncs(counts) == 3 + 5 + 2
+
+
+@pytest.mark.parametrize("counts,ok", [
+    (dict(segment_reads=0, no_class=3, learned=5, guessed=0, retried=0,
+          incremental=0), True),
+    (dict(segment_reads=1, no_class=3, learned=4, guessed=0, retried=1,
+          incremental=0), False),
+    (dict(segment_reads=1, no_class=3, learned=4, guessed=0, retried=0,
+          incremental=1), False),
+])
+def test_check_taught(counts, ok):
+    if ok:
+        cs._check_taught("bigdom", counts)
+    else:
+        with pytest.raises(AssertionError):
+            cs._check_taught("bigdom", counts)
 
 
 def test_message_sort_form_equals_the_port_s_message():

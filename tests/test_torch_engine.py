@@ -334,8 +334,9 @@ def test_run_protocol(tmp_path, catalogs, expected):
 
 
 def test_main_prints_tier_counts(tmp_path):
-    """`python -m sigmod2018_tpu_torch`: the lines on stdout, the tier
-    counts on stderr at exit; S18_FACTORIZE_MIN is read."""
+    """`python -m sigmod2018_tpu_torch`: the lines on stdout, the
+    engine's counts and the tier counts on stderr at exit;
+    S18_FACTORIZE_MIN is read."""
     import os
     import subprocess
     import sys
@@ -357,6 +358,11 @@ def test_main_prints_tier_counts(tmp_path):
     assert proc.stderr.strip().splitlines()[-1] == (
         "served by tier: materialized=1 factorized_proactive=1 "
         "factorized_blowup=0 text_order=0")
+    # before it, the default engine's counts: the fused single join
+    # needed no size class and nothing was read back
+    assert proc.stderr.strip().splitlines()[-2] == (
+        "engine CompiledTorchEngine: segment_reads=0 no_class=1 learned=0 "
+        "guessed=0 retried=0 incremental=0")
 
 
 def test_parse_ir_matches():

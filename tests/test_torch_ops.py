@@ -161,6 +161,25 @@ def test_join_emit_truncated_output():
     np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
 
 
+@pytest.mark.parametrize("out_size", [128, 1024, 8192])
+def test_join_emit_device_total(out_size):
+    """A 0-d tensor total (the compiled engine's, never read to the host)
+    emits what the int form and the JAX op emit, the total above
+    out_size included (the first out_size pairs are kept)."""
+    kb, kp = _join_inputs(4, 200, 300, 10)
+    jsk, jperm = jops.join_build(jnp.asarray(kb), jnp.int32(200))
+    jlo, _, jccum, jtot = jops.join_probe_count(
+        jsk, jnp.int32(200), jnp.asarray(kp), jnp.int32(300))
+    tsk, tperm = tops.join_build(_t(kb), 200)
+    tlo, _, tccum, ttot = tops.join_probe_count(tsk, 200, _t(kp), 300)
+    assert ttot.dim() == 0 and 1024 < int(ttot) < 8192
+    jb, jp = jops.join_emit(jperm, jlo, jccum, jtot, out_size=out_size)
+    for total in (ttot, int(ttot)):
+        tb, tp = tops.join_emit(tperm, tlo, tccum, total, out_size=out_size)
+        np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+        np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+
+
 def _key_table(keys):
     u = int(max(keys))
     cumcnt = np.zeros(u + 3, dtype=np.int32)
