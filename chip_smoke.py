@@ -6,8 +6,9 @@ Phases, each of which must pass:
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions;
 2. build: csrc/stair_counts.cu, csrc/slot_fill.cu and
-   csrc/probe_counts.cu, one nvcc each, all started together, timed,
-   with ptxas's report;
+   csrc/probe_counts.cu, one nvcc each, and the native loader
+   (storage/native/loader.cpp, g++), all started together, timed, with
+   ptxas's report;
 3. kernels vs plain, on the card, each with the median time of kernel
    and plain twin (CUDA events, L2 flushed before every run) and the
    bound of `bound()` (bytes over the card's memory rate):
@@ -59,7 +60,26 @@ Phases, each of which must pass:
    classes dispatches a query with an intermediate join of 2,000,000
    rows twice (planned, then from the per-text fast path) under
    `torch.cuda.set_sync_debug_mode("error")`, K1 launching inside; it is
-   fetched after the mode is reset and must equal its .result line.
+   fetched after the mode is reset and must equal its .result line;
+7. prep and instruments, on big and bigdom:
+   a. big's 12 columns: the native loader's stats must equal NumPy's
+      `compute_column_stats` in all six fields (and its zero-copy columns
+      the files' values); the seconds of stats by NumPy, by the native
+      loader and from a stats-cache hit;
+   b. fresh processes under the contest harness: `tools/harness.py INIT
+      WORK RESULT -- python -m sigmod2018_tpu_torch` (1 s prep window),
+      per workload from an emptied prep cache with the defaults (async
+      prep, native stats), again warm, and warm with S18_ASYNC_PREP=0;
+      each must exit 0 (every line exact), and its timed ms prints
+      beside phase 5's in-process timed phase; one more fresh process
+      times `import torch`, CUDA's start with a first launch, and the
+      import of the port's serving modules;
+   c. one bigdom query with an intermediate join under S18_TRACE=json
+      and S18_EXPLAIN=1 (the operator engine, one batch thread): its
+      line equal to the .result's, every trace record parsed, device_ms
+      >= 0, a floor on every join-family op, the summed device_ms at
+      most the query's wall time, and the `actual` lines equal to the
+      totals the engine read; its five largest ops print.
 
 Before them come the prep and timed phases of both engines per workload,
 side by side.  The line before the last is the kernel table as JSON (per
@@ -75,6 +95,7 @@ Run from the repository root:  python3 chip_smoke.py
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import os
@@ -87,6 +108,8 @@ from pathlib import Path
 
 import torch
 
+from sigmod2018_tpu_torch.utils.floors import HBM_BYTES_PER_S
+
 ROOT = Path(__file__).resolve().parent
 SMOKE_DIR = ROOT / "build" / "smoke"
 PREP_CACHE = SMOKE_DIR / "prep"  # learned size classes of this run only
@@ -94,9 +117,6 @@ RUNS_PER_WORKLOAD = 2
 KERNEL_SOURCES = ("stair_counts", "slot_fill", "probe_counts")
 K1_MAIN_CASE = "2^21 keys<2^20"
 K1_BIG_BUILD_CASE = "build 2^24 x probe 2^21"
-
-# H100 SXM device memory rate (NVIDIA's data sheet), at the full 700 W
-HBM_BYTES_PER_S = 3.35e12
 SPIN_CYCLES = 400_000  # ~0.2 ms of device time before each timed call
 
 
@@ -657,8 +677,9 @@ def phase_end_to_end(dev, card: str, prepared: dict) -> tuple:
     totals, k1_per_run, phases = {}, {}, {}
     try:
         for label, comp, algo, runs, names in PATHS:
+            # prep before serving, so that _Feed's split is prep / timed
             config = EngineConfig(platform="cuda", join_algo=algo,
-                                  compile_queries=comp)
+                                  compile_queries=comp, async_prep=False)
             total = {"K1": 0, "K4": 0, "K5": 0}
             k1_per_run[label] = {}
             for name in names:
@@ -789,7 +810,223 @@ def phase_sync_free(card: str) -> dict:
           f"set_sync_debug_mode('error'); K1 {k1} launches; line equal "
           f"to bigdom.result; host dispatch {host_ms[0]:.3f} ms planned, "
           f"{host_ms[1]:.3f} ms fast path ({card})", flush=True)
-    return {"host_ms": host_ms}
+    return {"host_ms": host_ms, "pick": pick}
+
+
+def _stats_rows(catalog) -> list:
+    return [[dataclasses.astuple(s) for s in rel] for rel in catalog.stats]
+
+
+def phase_prep_stats(card: str) -> dict:
+    """big's 12 columns: stats by NumPy, by the native loader and from a
+    stats-cache hit, equal in all six fields: {way: seconds}."""
+    import numpy as np
+
+    from sigmod2018_tpu_torch.storage.catalog import Catalog
+
+    init = workload_files("big")[0]
+    cache = SMOKE_DIR / "prep-stats"
+    shutil.rmtree(cache, ignore_errors=True)
+    seconds, cats = {}, {}
+    try:
+        for way, loc, native in (("numpy", "0", False),
+                                 ("native", "0", True),
+                                 ("cache miss", str(cache), True),
+                                 ("cache hit", str(cache), True)):
+            os.environ["S18_PREP_CACHE"] = loc
+            t0 = time.perf_counter()
+            cats[way] = Catalog.from_files(init, native=native)
+            seconds[way] = time.perf_counter() - t0
+    finally:
+        os.environ["S18_PREP_CACHE"] = str(PREP_CACHE)
+    want = _stats_rows(cats["numpy"])
+    for way in ("native", "cache hit"):
+        if _stats_rows(cats[way]) != want:
+            raise AssertionError(f"big: stats {way} != NumPy's")
+    ncols = sum(len(r) for r in want)
+    for rid, rel in enumerate(cats["native"].relations):
+        for cid, col in enumerate(rel.columns):
+            if not np.array_equal(col, cats["numpy"].column(rid, cid)):
+                raise AssertionError(f"big: native column {rid}.{cid} != "
+                                     f"the file's")
+    # a hit maps the files (np.memmap) and takes the stats from the cache
+    if not isinstance(cats["cache hit"].column(0, 0), np.memmap):
+        raise AssertionError("big: the second cached load was not a hit")
+    rows = cats["numpy"].relation(0).num_tuples
+    print(f"prep stats [big, {ncols} columns of {rows:,} rows]: equal in "
+          f"all six fields (NumPy, native, cache hit); NumPy "
+          f"{seconds['numpy']:.3f} s, native {seconds['native']:.3f} s, "
+          f"cache miss (native + write) {seconds['cache miss']:.3f} s, "
+          f"cache hit {seconds['cache hit']:.3f} s ({card})", flush=True)
+    return seconds
+
+
+HARNESS_RUNS = (("cold", {}), ("warm", {}),
+                ("warm, blocking prep", {"S18_ASYNC_PREP": "0"}))
+
+# What every fresh `python -m sigmod2018_tpu_torch` pays before its first
+# query, step by step (seconds on the process's own clock).
+FRESH_PROCESS = """
+import json, time
+t0 = time.perf_counter()
+import torch
+t1 = time.perf_counter()
+torch.zeros(1, device="cuda").sum().item()
+t2 = time.perf_counter()
+import sigmod2018_tpu_torch.engine.compiled, sigmod2018_tpu_torch.io.repl
+t3 = time.perf_counter()
+print(json.dumps({"import torch": t1 - t0,
+                  "CUDA start + first launch": t2 - t1,
+                  "import of the port": t3 - t2}))
+"""
+
+
+def fresh_process_steps(card: str) -> dict:
+    """FRESH_PROCESS in a subprocess: {step: seconds}, with the whole
+    process's wall time (interpreter start and exit included)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", FRESH_PROCESS],
+                          env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                          capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"fresh process: {proc.stderr[-4000:]}")
+    steps = json.loads(proc.stdout.splitlines()[-1])
+    steps["whole process"] = wall
+    print("fresh process: " + ", ".join(f"{k} {v:.3f} s"
+                                        for k, v in steps.items())
+          + f" ({card})", flush=True)
+    return steps
+
+
+def phase_harness(card: str, phases: dict) -> dict:
+    """Fresh processes under the contest harness, per workload of
+    FORCED_WORKLOADS and run of HARNESS_RUNS: {(workload, run): timed ms}.
+    The first run starts from an emptied prep cache."""
+    import re
+
+    timed = {}
+    for name in FORCED_WORKLOADS:
+        src = ROOT / "workloads" / name
+        init = SMOKE_DIR / name / f"{name}.init"  # bare names, beside them
+        init.write_text((src / f"{name}.init").read_text())
+        cache = SMOKE_DIR / f"harness-prep-{name}"
+        shutil.rmtree(cache, ignore_errors=True)
+        cache.mkdir(parents=True)
+        for label, extra in HARNESS_RUNS:
+            env = dict(os.environ, PYTHONPATH=str(ROOT),
+                       S18_PREP_CACHE=str(cache), **extra)
+            cmd = [sys.executable, str(ROOT / "tools" / "harness.py"),
+                   str(init), str(src / f"{name}.work"),
+                   str(src / f"{name}.result"), "--", sys.executable, "-m",
+                   "sigmod2018_tpu_torch"]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, env=env, capture_output=True,
+                                  text=True, timeout=300)
+            wall = time.perf_counter() - t0
+            hit = re.search(r"(\d+) queries, 0 mismatches, (\d+) ms",
+                            proc.stdout)
+            if proc.returncode != 0 or hit is None:
+                raise AssertionError(
+                    f"harness on {name} ({label}): rc {proc.returncode}\n"
+                    f"{proc.stdout}\n{proc.stderr[-4000:]}")
+            timed[name, label] = int(hit.group(2))
+            engine = [ln for ln in proc.stderr.splitlines()
+                      if ln.startswith(("engine ", "served by tier"))]
+            in_proc = [phases["compiled auto", name, run][1] * 1e3
+                       for run in (1, 2)]
+            print(f"harness [{name} {label}] {hit.group(1)} queries exact; "
+                  f"timed phase {timed[name, label]} ms (in-process, phase "
+                  f"5: compiled run 1 {in_proc[0]:.1f} ms, run 2 "
+                  f"{in_proc[1]:.1f} ms); whole harness run {wall:.3f} s; "
+                  f"{'; '.join(engine)} ({card})", flush=True)
+    return timed
+
+
+def _recording(steps, seen: list):
+    """A query's steps (TorchEngine._steps) passed through, keeping each
+    intermediate join and its total as the engine reads it."""
+    try:
+        item = next(steps)
+        while True:
+            seen.append((str(item[0]), int(item[1])))
+            item = steps.send((yield item))
+    except StopIteration as done:
+        return done.value
+    finally:
+        steps.close()
+
+
+def phase_trace(card: str, pick: int) -> list:
+    """bigdom query `pick` (it has an intermediate join) served by the
+    operator engine under S18_TRACE=json and S18_EXPLAIN=1: the checks of
+    the module docstring; returns its trace records."""
+    import contextlib
+
+    from sigmod2018_tpu_torch.config import EngineConfig
+    from sigmod2018_tpu_torch.engine.executor import TorchEngine
+    from sigmod2018_tpu_torch.io.repl import serve
+    from sigmod2018_tpu_torch.utils import floors
+
+    init, work, want = workload_files("bigdom")
+    text = [t for t in work if t != "F"][pick]
+    config = EngineConfig(platform="cuda", compile_queries=False,
+                          trace="json", explain=True, async_prep=False,
+                          batch_workers=1)
+    seen, err, out = [], io.StringIO(), io.StringIO()
+    real_sized = TorchEngine._sized
+    TorchEngine._sized = lambda self, steps, guard: real_sized(
+        self, _recording(steps, seen), guard)
+    feed = _Feed(init + ["Done", text, "F"], len(init) + 1)
+    try:
+        with contextlib.redirect_stderr(err):
+            t0 = time.perf_counter()
+            engine = serve(feed, out, config)
+            t1 = time.perf_counter()
+    finally:
+        TorchEngine._sized = real_sized
+    if type(engine) is not TorchEngine:
+        raise AssertionError(f"S18_TRACE served with {type(engine)}")
+    if out.getvalue().splitlines() != [want[pick]]:
+        raise AssertionError(f"traced bigdom query {text!r}: "
+                             f"{out.getvalue()!r} != {want[pick]!r}")
+    lines = err.getvalue().splitlines()
+    records = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    actual = [(ln.split(": actual ")[0][len("--   "):],
+               int(ln.split(": actual ")[1]))
+              for ln in lines if ": actual " in ln]
+    ops_ = [op for rec in records for op in rec["ops"]]
+    family = floors.FUSED_OPS + floors.COUNT_OPS + (floors.TABLE_COUNT_OP,)
+    wall_ms = (t1 - feed.t_serving) * 1e3
+    total_ms = sum(op["device_ms"] for op in ops_)
+    problems = []
+    if len(records) != 1 or records[0]["query"] != text:
+        problems.append(f"{len(records)} trace records")
+    if not any(ln.startswith("-- plan: ") for ln in lines):
+        problems.append("no plan line")
+    if any(op["device_ms"] < 0 for op in ops_):
+        problems.append("a negative device_ms")
+    if not any(op["op"] in family for op in ops_) or any(
+            "floor_ms" not in op for op in ops_ if op["op"] in family):
+        problems.append("a join-family op without floor_ms")
+    if total_ms > wall_ms:
+        problems.append(f"device ms {total_ms:.3f} > wall {wall_ms:.3f}")
+    if not seen or actual != seen:
+        problems.append(f"actual lines {actual} != totals read {seen}")
+    if problems:
+        raise AssertionError(f"traced bigdom query {text!r}: {problems}\n"
+                             + "\n".join(lines[-40:]))
+    print(f"trace [bigdom query {pick + 1} {text!r}, operator engine, "
+          f"S18_TRACE=json S18_EXPLAIN=1] line equal to bigdom.result; "
+          f"{len(ops_)} ops, {total_ms:.3f} ms on the card of {wall_ms:.3f} "
+          f"ms of serving; actual totals {seen} equal the totals read "
+          f"({card})", flush=True)
+    for op in sorted(ops_, key=lambda o: -o["device_ms"])[:5]:
+        print(f"trace top op: {op['op']} [{op['shapes']}] "
+              f"{op['device_ms']:.4f} ms, {op['bytes']} bytes, hbm_frac "
+              f"{op['hbm_frac']}, floor_ms {op.get('floor_ms')}, floor_frac "
+              f"{op.get('floor_frac')} ({card})", flush=True)
+    return records
 
 
 def _check_path(name: str, label: str, counts: dict, table_joins) -> None:
@@ -837,7 +1074,22 @@ def main() -> int:
           f"{torch.cuda.device_count()} device(s), python "
           f"{sys.version.split()[0]}", flush=True)
 
-    builds = _kernels.load_all(KERNEL_SOURCES)
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sigmod2018_tpu_torch.storage import native
+
+    def build_native() -> float:
+        native.library_path().unlink(missing_ok=True)  # time a real build
+        t0 = time.perf_counter()
+        native.load()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        native_build = pool.submit(build_native)
+        builds = _kernels.load_all(KERNEL_SOURCES)
+        native_s = native_build.result()
+    print(f"build native loader: {native_s:.2f} s (g++, with the nvcc "
+          f"builds) -> {native.library_path().relative_to(ROOT)}")
     for name, seconds in builds.items():
         lib = _kernels.library_path(name)
         print(f"build {name}: {seconds:.2f} s (builds started together) "
@@ -855,8 +1107,12 @@ def main() -> int:
     PREP_CACHE.mkdir(parents=True)
     os.environ["S18_PREP_CACHE"] = str(PREP_CACHE)
     totals, k1_per_run, phases = phase_end_to_end(dev, card, prepared)
-    phase_sync_free(card)
+    sync_free = phase_sync_free(card)
     print_phases(phases, card)
+    phase_prep_stats(card)
+    phase_harness(card, phases)
+    fresh_process_steps(card)
+    phase_trace(card, sync_free["pick"])
 
     k1_main, k1_big = k1_times[K1_MAIN_CASE], k1_times[K1_BIG_BUILD_CASE]
     k4_err, k4_times = radix_kernels["slot_fill"]

@@ -8,8 +8,11 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from typing import Union
 
 import torch
+
+BACKENDS = ("torch", "numpy")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -18,6 +21,10 @@ class EngineConfig:
     # "cuda" on a machine without a usable card raises; nothing falls
     # back to the CPU.
     platform: str = "cuda"
+
+    # Operator backend: "torch" (the engines of engine/, on `platform`) or
+    # "numpy" (the host oracle, engine/oracle.py: no device is touched).
+    backend: str = "torch"
 
     # Fused-join member: "auto" (the staircase member at scale, the
     # sort/table members below ops.radix_join.RADIX_MIN_ROWS), or "sort",
@@ -66,6 +73,27 @@ class EngineConfig:
     # prefetch, so every known text has run once before the timed phase.
     warm_replay: bool = False
 
+    # S18_EXPLAIN=1: each join order with the planner's estimates, and the
+    # actual total of each intermediate join read to the host, on stderr.
+    explain: bool = False
+
+    # S18_TRACE: per-op card time, bytes and floors of each query on
+    # stderr (engine/trace.py), True for a table, "json" for one object
+    # per query.  io/repl.py then serves with the operator engine.
+    trace: Union[bool, str] = False
+
+    # Run the prefetch (device copies, presorts, key tables) in a thread
+    # while serving starts; the first queries build what they need.
+    async_prep: bool = True
+
+    # Stats by the native loader (storage/native); False: NumPy.
+    native: bool = True
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(f"S18_BACKEND={self.backend!r}: expected one "
+                             f"of {BACKENDS}")
+
     def device(self) -> torch.device:
         if self.platform == "cuda":
             if not torch.cuda.is_available():
@@ -94,6 +122,12 @@ class EngineConfig:
             spec_margin=int(_flag("S18_SPEC_MARGIN", "8")),
             spec_max=int(_flag("S18_SPEC_MAX", str(1 << 22))),
             warm_replay=_flag("S18_WARM_REPLAY", "0") != "0",
+            backend=_flag("S18_BACKEND", "torch"),
+            explain=_flag("S18_EXPLAIN", "0") == "1",
+            trace={"0": False, "1": True}.get(_flag("S18_TRACE", "0"),
+                                              _flag("S18_TRACE", "0")),
+            async_prep=_flag("S18_ASYNC_PREP", "1") != "0",
+            native=_flag("S18_NATIVE", "1") != "0",
         )
 
 

@@ -128,10 +128,10 @@ def run_segments(engine: TorchEngine, query: Query,
     steps = _steps(engine, query, joins, cols)
     totals: List[torch.Tensor] = []
     try:
-        total = next(steps)
+        _, total = next(steps)
         for P in classes:
             totals.append(total.reshape(1))
-            total = steps.send((P, torch.clamp(total, max=P)))
+            _, total = steps.send((P, torch.clamp(total, max=P)))
     except StopIteration as done:
         return torch.cat(totals + [done.value])
     return total
@@ -246,15 +246,16 @@ class CompiledTorchEngine(TorchEngine):
             self._replay_learned()
 
     def _replay_learned(self, cap: int = 512) -> None:
-        texts = list(self._learned_classes)[:cap]
-        if not texts:
-            return
-        format_batch([self.execute_async(parse_query(t)) for t in texts])
-        # The replay is prep: the serving counts start after it.
-        with self._tier_lock:
-            for counter in (self.tiers, self.counts):
-                for key in counter:
-                    counter[key] = 0
+        with self._learn_lock:  # serving may be learning meanwhile
+            texts = list(self._learned_classes)[:cap]
+        # The replay is prep: its dispatches and lines (made in this
+        # thread) are not counted, so the counts are serving's alone,
+        # also when serving starts while the replay runs (async prep).
+        self._uncounted.on = True
+        try:
+            format_batch([self.execute_async(parse_query(t)) for t in texts])
+        finally:
+            self._uncounted.on = False
 
     # ---- execution -----------------------------------------------------------
 
@@ -371,6 +372,7 @@ class CompiledTorchEngine(TorchEngine):
         if len(joins) > 1:
             joins = plan_joins(query, self.catalog)
         joins = tuple(joins)
+        self._explain_plan(query, joins)
 
         comps: List[set] = []
 

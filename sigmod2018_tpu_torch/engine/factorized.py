@@ -350,18 +350,16 @@ def edge_ranks(engine, srel: int, scol: int, rrel: int, rcol: int):
     unsigned order.  The sender's pads (2^64-1) sort after its live
     rows and the receiver's pads (0) rank like a live 0: neither
     matters, since pad rows carry weight 0 on both sides.  Queries of a
-    batch dispatch from several threads; a racing duplicate build
-    stores equal values."""
-    key = (srel, scol, rrel, rcol)
-    hit = engine._edge_ranks.get(key)
-    if hit is None:
+    batch dispatch from several threads; each edge is built once
+    (TorchEngine._once)."""
+    def build():
         sorted_keys, perm = engine.device_sorted_column(srel, scol)
         rkeys, _ = engine.device_column(rrel, rcol)
-        hit = (perm,
-               ranks_u64(sorted_keys, rkeys, "left").to(torch.int32),
-               ranks_u64(sorted_keys, rkeys, "right").to(torch.int32))
-        engine._edge_ranks[key] = hit
-    return hit
+        return (perm,
+                ranks_u64(sorted_keys, rkeys, "left").to(torch.int32),
+                ranks_u64(sorted_keys, rkeys, "right").to(torch.int32))
+
+    return engine._once(engine._edge_ranks, (srel, scol, rrel, rcol), build)
 
 
 def factorized_result(engine, query: Query):

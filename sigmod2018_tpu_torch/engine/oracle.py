@@ -19,6 +19,7 @@ Semantics (reference: query.c:325-467, inter_res.c, filter.c):
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -196,3 +197,26 @@ def execute_query_numpy(query: Query, catalog: Catalog,
 
 def _null_line(query: Query) -> str:
     return " ".join("NULL" for _ in query.views)
+
+
+class OracleEngine:
+    """Serves the protocol with this oracle (S18_BACKEND=numpy, as in the
+    reference package): each query is answered on the host from the
+    catalog's columns, and no device is touched.  It has the interface
+    io/repl.py drives: `prefetch`, `execute_async` (returning the line),
+    `counts` and `tiers`."""
+
+    def __init__(self, catalog: Catalog):
+        self.catalog = catalog
+        self.counts: Dict[str, int] = {}
+        self.tiers: Dict[str, int] = {"oracle": 0}
+        self._lock = threading.Lock()
+
+    def prefetch(self) -> None:
+        """Nothing to prepare: columns are read where they are mapped."""
+
+    def execute_async(self, query: Query) -> str:
+        line = execute_query_numpy(query, self.catalog)
+        with self._lock:
+            self.tiers["oracle"] += 1
+        return line

@@ -7,8 +7,14 @@ Protocol:
   3. one output line per query: space-separated uint64 checksums, or NULL
      per projection on an empty result
 
-The prep phase (loading, stats, device copies, presorts, key tables) runs
-before the first batch; the contest harness does not time it.
+Prep is loading and stats (storage/catalog.py: stats cache, native
+loader or NumPy), then the engine's prefetch (device copies, presorts,
+key tables).  The contest harness times everything past a 1 s window
+after `Done`, so by default (S18_ASYNC_PREP) the prefetch runs in a
+thread while serving starts, and the first queries build the columns
+they need on demand.  An exception in that thread is raised by `serve`
+after the last line is written, and `serve` joins the thread before it
+returns.  S18_ASYNC_PREP=0 prefetches before the first query is read.
 
 A malformed query line — text that does not parse, or that names a
 relation, binding or column that does not exist — answers a NULL line
@@ -16,7 +22,10 @@ and the batch goes on, as in the reference package.  Any other error is
 a fault of the engine or the device and propagates.
 
 The engine is `CompiledTorchEngine` (engine/compiled.py), or the
-operator-granular `TorchEngine` under S18_COMPILE_QUERIES=0.  `serve`
+operator-granular `TorchEngine` under S18_COMPILE_QUERIES=0 and under
+S18_TRACE (whose per-op report is the operator engine's, as in the
+reference package), or under S18_BACKEND=numpy the host oracle's
+`OracleEngine` (engine/oracle.py), which touches no device.  `serve`
 returns it; `run_protocol` returns how many queries each serving tier
 answered (`TorchEngine.tiers`).  `main` prints the engine's counts (host
 reads of intermediate totals and, for the compiled engine, how each
@@ -26,6 +35,7 @@ query was sized) and then the tiers on stderr at exit.
 from __future__ import annotations
 
 import sys
+import threading
 from typing import IO, Dict, List, Optional
 
 from ..config import EngineConfig
@@ -56,13 +66,46 @@ def _null_line(num_views: int) -> str:
     return " ".join(["NULL"] * max(num_views, 1))
 
 
+def make_engine(catalog: Catalog, config: EngineConfig):
+    """The engine `config` asks for (see the module docstring)."""
+    if config.backend == "numpy":
+        from ..engine.oracle import OracleEngine
+
+        return OracleEngine(catalog)
+    from ..engine.compiled import CompiledTorchEngine
+    from ..engine.executor import TorchEngine
+
+    if config.compile_queries and not config.trace:
+        return CompiledTorchEngine(catalog, config)
+    return TorchEngine(catalog, config)
+
+
+class _Prep:
+    """engine.prefetch() in a thread; its exception is kept for `serve`."""
+
+    def __init__(self, engine):
+        self.error: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._run, args=(engine,),
+                                        name="s18prefetch")
+        self._thread.start()
+
+    def _run(self, engine) -> None:
+        try:
+            engine.prefetch()
+        except BaseException as exc:  # noqa: BLE001 — serve raises it
+            self.error = exc
+
+    def join(self) -> Optional[BaseException]:
+        self._thread.join()
+        return self.error
+
+
 def serve(stdin: IO[str], stdout: IO[str],
           config: Optional[EngineConfig] = None):
     """Answer the protocol on stdin; returns the engine that served."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from ..engine.compiled import CompiledTorchEngine
-    from ..engine.executor import TorchEngine, format_batch
+    from ..engine.executor import format_batch
 
     config = config or EngineConfig.from_env()
     paths: List[str] = []
@@ -73,10 +116,13 @@ def serve(stdin: IO[str], stdout: IO[str],
         if line:
             paths.append(line)
 
-    catalog = Catalog.from_files(paths)
-    engine = (CompiledTorchEngine if config.compile_queries
-              else TorchEngine)(catalog, config)
-    engine.prefetch()
+    catalog = Catalog.from_files(paths, native=config.native)
+    engine = make_engine(catalog, config)
+    prep = None
+    if config.async_prep:
+        prep = _Prep(engine)
+    else:
+        engine.prefetch()
 
     def start(q):
         # a str is the NULL answer of a malformed line
@@ -120,9 +166,17 @@ def serve(stdin: IO[str], stdout: IO[str],
             batch.append(q)
         # A trailing batch without its final F still executes.
         run_batch(batch, pool)
+    except BaseException as exc:
+        if prep is not None and prep.join() is not None:
+            exc.add_note(f"the prefetch thread failed too: {prep.error!r}")
+        raise
     finally:
         if pool is not None:
             pool.shutdown()
+        if prep is not None:
+            prep.join()  # nothing of prep outlives serve on the card
+    if prep is not None and prep.error is not None:
+        raise prep.error
     return engine
 
 
@@ -133,8 +187,8 @@ def run_protocol(stdin: IO[str], stdout: IO[str],
 
 def main() -> None:
     engine = serve(sys.stdin, sys.stdout)
-    print(f"engine {type(engine).__name__}: " + " ".join(
-        f"{k}={v}" for k, v in engine.counts.items()), file=sys.stderr)
+    print(f"engine {type(engine).__name__}:" + "".join(
+        f" {k}={v}" for k, v in engine.counts.items()), file=sys.stderr)
     print("served by tier: " + " ".join(
         f"{k}={v}" for k, v in engine.tiers.items()), file=sys.stderr)
 

@@ -2,12 +2,14 @@
 
 Statistics are the reference package's (`sigmod2018_tpu/storage/catalog.py`):
 min/max, row count, exact distinct count and a 1-bucket most-common-value
-sketch, all from one sort-unique pass per column on the host.  They feed
-only the planner, so they never affect a result.  The native C++ loader
-and the on-disk stats cache of the reference package are not ported yet.
+sketch.  They feed only the planner, so they never affect a result.
+`Catalog.from_files` takes them from the on-disk stats cache, else from
+the native loader (storage/native: mmap + multithreaded sort-unique in
+C++), else from NumPy (one sort-unique pass per column), in that order.
 
 `identity_digest` and `prep_cache_dir` key the prep artifacts kept on
-disk across processes (the compiled engine's learned size classes).
+disk across processes: the stats here, the compiled engine's learned
+size classes.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
+import sys
+import tempfile
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -77,6 +81,70 @@ def prep_cache_dir() -> Optional[str]:
                                "sigmod2018_tpu_torch")
 
 
+# ---------------------------------------------------------------------------
+# Stats cache: the prep phase's costly artifact is the per-column exact
+# stats.  They are kept in the prep cache as stats-torch-<identity
+# digest>.npz, keyed by (basename, size, mtime) of every file, so a
+# re-serve of the same relation set skips the scan; a rewritten file has
+# another key.  The `torch` in the name keeps the two packages from
+# reading each other's file when S18_PREP_CACHE points both at one
+# directory.  S18_PREP_CACHE=0 reads and writes nothing.
+# ---------------------------------------------------------------------------
+
+_STAT_FIELDS = ("l", "u", "f", "d", "fmax", "mode")
+
+
+def stats_cache_path(paths: Sequence[str]) -> Optional[str]:
+    base = prep_cache_dir()
+    digest = identity_digest(paths) if base else None
+    if digest is None:
+        return None
+    return os.path.join(base, f"stats-torch-{digest}.npz")
+
+
+def _stats_cache_load(paths: Sequence[str]
+                      ) -> Optional[List[List[ColumnStats]]]:
+    fp = stats_cache_path(paths)
+    if fp is None or not os.path.exists(fp):
+        return None
+    try:
+        with np.load(fp) as z:
+            ncols = [int(n) for n in z["ncols"]]
+            flat = {f: [int(v) for v in z[f]] for f in _STAT_FIELDS}
+    except (OSError, KeyError, ValueError) as exc:
+        print(f"stats cache {fp} not read: {exc!r}", file=sys.stderr)
+        return None
+    if len(ncols) != len(paths) or any(len(v) != sum(ncols)
+                                       for v in flat.values()):
+        return None
+    stats, k = [], 0
+    for nc in ncols:
+        stats.append([ColumnStats(*(flat[f][k + c] for f in _STAT_FIELDS))
+                      for c in range(nc)])
+        k += nc
+    return stats
+
+
+def _stats_cache_store(paths: Sequence[str],
+                       stats: List[List[ColumnStats]]) -> None:
+    fp = stats_cache_path(paths)
+    if fp is None:
+        return
+    # uint64: l, u and mode are key values and may pass 2^63
+    flat = {f: np.array([getattr(s, f) for rel in stats for s in rel],
+                        dtype=np.uint64) for f in _STAT_FIELDS}
+    try:
+        os.makedirs(os.path.dirname(fp), exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=os.path.dirname(fp), suffix=".npz")
+        with os.fdopen(fd, "wb") as fh:
+            np.savez(fh, ncols=np.array([len(r) for r in stats],
+                                        dtype=np.uint64), **flat)
+        os.replace(tmp, fp)  # atomic: concurrent servers race benignly
+    except OSError as exc:
+        # Serving goes on: the next process only computes the stats again.
+        print(f"stats cache not written: {exc!r}", file=sys.stderr)
+
+
 class Catalog:
     """All loaded relations, indexed by relation id (file order on stdin).
     `source_paths` are the files they came from (empty when built in
@@ -92,11 +160,31 @@ class Catalog:
                           for rel in self.relations]
 
     @staticmethod
-    def from_files(paths: Sequence[str],
-                   compute_stats: bool = True) -> "Catalog":
-        cat = Catalog([load_relation(p) for p in paths],
-                      compute_stats=compute_stats)
-        cat.source_paths = list(paths)
+    def from_files(paths: Sequence[str], compute_stats: bool = True,
+                   native: bool = True) -> "Catalog":
+        """The relations of `paths` with their stats: from the stats
+        cache, else from the native loader (`native`, S18_NATIVE), else
+        from NumPy; a computed set is written to the cache."""
+        paths = [os.fspath(p) for p in paths]
+        stats = _stats_cache_load(paths) if compute_stats else None
+        if stats is not None or not compute_stats:
+            relations = [load_relation(p) for p in paths]  # mmap only
+        elif native:
+            from .native import load_relations_native
+
+            relations, stats = [], []
+            for rel, rel_stats in load_relations_native(paths):
+                relations.append(rel)
+                stats.append(rel_stats)
+            _stats_cache_store(paths, stats)
+        else:
+            relations = [load_relation(p) for p in paths]
+            stats = [[compute_column_stats(col) for col in rel.columns]
+                     for rel in relations]
+            _stats_cache_store(paths, stats)
+        cat = Catalog(relations, compute_stats=False)
+        cat.stats = stats or []
+        cat.source_paths = paths
         return cat
 
     def relation(self, rid: int) -> Relation:

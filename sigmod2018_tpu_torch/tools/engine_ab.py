@@ -125,8 +125,9 @@ def serve_once(name: str, compiled: bool, workers: int, files,
     torch.cuda.empty_cache()
     feed = _Feed(init + ["Done"] + work, len(init) + 1, on_serving)
     out = io.StringIO()
+    # prep before serving, so that _Feed's split is prep / timed phase
     config = EngineConfig(platform=PLATFORM, compile_queries=compiled,
-                          batch_workers=workers)
+                          batch_workers=workers, async_prep=False)
     t0 = time.perf_counter()
     with _FetchClock(executor) as clock:
         engine = serve(feed, out, config)

@@ -202,3 +202,47 @@ def test_message_sort_form_equals_the_port_s_message():
     same = se & (skeys == rkeys[0])
     assert int(got_w[0]) == int(sw[same].sum()) and \
         bool(got_e[0]) == bool(same.any())
+
+
+def test_one_memory_rate_for_bounds_and_trace():
+    from sigmod2018_tpu_torch.utils import floors
+
+    assert cs.HBM_BYTES_PER_S is floors.HBM_BYTES_PER_S == 3.35e12
+
+
+def test_recording_passes_a_query_s_steps_through():
+    """Phase 7c's spy on the totals the engine reads: it hands every
+    (join, total) on and every (P, count) back, returns the packed
+    vector, and closes the steps when the engine stops early."""
+    closed = []
+
+    def steps(totals):
+        try:
+            for name, t in totals:
+                P, count = yield name, torch.tensor(t)
+                assert (P, count) == (8, t)
+            return "packed"
+        finally:
+            closed.append(True)
+
+    seen = []
+    gen = cs._recording(steps([("0.1=1.0", 5), ("1.2=2.0", 7)]), seen)
+    assert next(gen)[0] == "0.1=1.0"
+    assert gen.send((8, 5))[0] == "1.2=2.0"
+    with pytest.raises(StopIteration) as done:
+        gen.send((8, 7))
+    assert done.value.value == "packed"
+    assert seen == [("0.1=1.0", 5), ("1.2=2.0", 7)] and closed == [True]
+    seen.clear()
+    gen = cs._recording(steps([("0.1=1.0", 0), ("1.2=2.0", 7)]), seen)
+    next(gen)
+    gen.close()  # TorchEngine._sized on a zero total
+    assert seen == [("0.1=1.0", 0)] and closed == [True, True]
+
+
+def test_harness_runs_end_with_blocking_prep():
+    assert [label for label, _ in cs.HARNESS_RUNS] == [
+        "cold", "warm", "warm, blocking prep"]
+    assert [env for _, env in cs.HARNESS_RUNS] == [
+        {}, {}, {"S18_ASYNC_PREP": "0"}]
+    assert "import torch" in cs.FRESH_PROCESS

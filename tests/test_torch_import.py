@@ -46,10 +46,14 @@ def test_imports_with_jax_blocked():
 
 
 @pytest.mark.parametrize("module", ["frontend.sql", "engine.oracle",
-                                    "engine.factorized"])
+                                    "engine.factorized", "engine.trace",
+                                    "utils.floors", "storage.native",
+                                    "storage.catalog", "io.repl"])
 def test_blowup_path_modules_import_with_jax_blocked(module):
-    """The modules of the blow-up path, each on its own in a fresh
-    process: the oracle and the NumPy twin need no torch device either."""
+    """The modules of the blow-up path and of the serving process's prep
+    and instruments, each on its own in a fresh process: the oracle and
+    the NumPy twin need no torch device either, and importing the native
+    loader builds nothing."""
     code = _BLOCKED_IMPORT.split("import sigmod2018_tpu_torch")[0] + (
         f"import importlib\n"
         f"m = importlib.import_module('sigmod2018_tpu_torch.{module}')\n"
