@@ -81,12 +81,26 @@ Phases, each of which must pass:
       most the query's wall time, and the `actual` lines equal to the
       totals the engine read; its five largest ops print.
 
+8. the mesh (parallel/), every shard on the one card: first the
+   shard-to-device maps of 4 and 8 shards; then, from an emptied prep
+   cache (build/smoke/mesh-prep), the whole-query engine on 4 shards with
+   the all_to_all exchange on all five workloads twice (the second run
+   sized from what the first learned: no retry, no host read of a
+   total), the operator engine on 4 shards once on big and bigdom, 8
+   shards with the ring exchange on bigdom and zipf, and on zipf
+   S18_SKEW=1 and S18_BCAST=2^22 on 4 shards.  Every line must equal the
+   .result and the tiers add up; K1 must launch in bigdom's 4-shard
+   runs, and broadcast, shuffle and skew must each serve a join.  Each
+   run prints its collectives by kind, join strategies, K1 launches,
+   host syncs, and its prep and timed phase beside phase 5's
+   single-device ones.
+
 Before them come the prep and timed phases of both engines per workload,
 side by side.  The line before the last is the kernel table as JSON (per
 kernel: time, plain and library times, bound and its share, launches on
 the path that runs it, on the compiled engine's auto main path, per
-compiled auto run of each workload, under the operator engine and under
-the forced members); the last line is {"ok": true, "device": {...}}.
+compiled auto run of each workload, under the operator engine, under
+the forced members and, for K1, on the mesh); the last line is {"ok": true, "device": {...}}.
 Any failure exits non-zero before either is printed, as does a machine
 without a CUDA device.
 
@@ -1029,6 +1043,117 @@ def phase_trace(card: str, pick: int) -> list:
     return records
 
 
+# Phase 8: (label, mesh config, compiled engine, runs per workload,
+# workloads).  The compiled mesh-4 runs come first, from an emptied prep
+# cache: the first run teaches the second.  The strategy runs are set so
+# that, with the default runs, broadcast, shuffle and skew each serve a
+# join: on zipf the MCV sketch's hot key (a Zipf(1.3) head of about a
+# quarter of the rows) passes skew_factor x the average shard share at
+# S18_SKEW=1 on 4 shards and at the default 2 on 8, and every build side
+# broadcasts under S18_BCAST=2^22 (the JAX package's DistCompiledEngine
+# makes the same choices on the CPU).
+MESH_PATHS = [
+    ("mesh4 a2a compiled", dict(mesh_devices=4), True, RUNS_PER_WORKLOAD,
+     tuple(WORKLOADS)),
+    ("mesh4 a2a operator", dict(mesh_devices=4), False, 1,
+     FORCED_WORKLOADS),
+    ("mesh8 ring compiled", dict(mesh_devices=8, exchange="ring"), True, 1,
+     ("bigdom", "zipf")),
+    ("mesh4 skew compiled", dict(mesh_devices=4, skew_factor=1), True, 1,
+     ("zipf",)),
+    ("mesh4 broadcast compiled", dict(mesh_devices=4,
+                                      bcast_threshold=1 << 22), True, 1,
+     ("zipf",)),
+]
+MESH_PREP_CACHE = SMOKE_DIR / "mesh-prep"
+
+
+def phase_mesh(card: str, phases: dict) -> dict:
+    """The mesh path on the card: every line of every MESH_PATHS run
+    equal to the .result, its tiers adding up, the second compiled
+    mesh-4 run of each workload sized from what the first learned (no
+    retry, no host read of a total), K1 launching in bigdom's mesh-4
+    runs, and broadcast, shuffle and skew each serving a join.  Returns
+    {run label: K1 launches}."""
+    import collections
+
+    from sigmod2018_tpu_torch.config import EngineConfig
+    from sigmod2018_tpu_torch.io.repl import serve
+    from sigmod2018_tpu_torch.parallel import collectives, make_mesh
+
+    for n in (4, 8):
+        devs = make_mesh(n, "cuda").flat
+        print(f"mesh of {n}: shard -> device "
+              f"{ {i: str(d) for i, d in enumerate(devs)} }; "
+              f"torch.cuda.device_count() {torch.cuda.device_count()}",
+              flush=True)
+    shutil.rmtree(MESH_PREP_CACHE, ignore_errors=True)
+    MESH_PREP_CACHE.mkdir(parents=True)
+    os.environ["S18_PREP_CACHE"] = str(MESH_PREP_CACHE)
+    strategies = collections.Counter()
+    k1 = {}
+    for label, mesh_cfg, comp, runs, names in MESH_PATHS:
+        config = EngineConfig(platform="cuda", compile_queries=comp,
+                              async_prep=False, **mesh_cfg)
+        for name in names:
+            init, work, want = workload_files(name)
+            for run in range(1, runs + 1):
+                feed = _Feed(init + ["Done"] + work, len(init) + 1)
+                out = io.StringIO()
+                _reset_counts()
+                collectives.reset_calls()
+                t0 = time.perf_counter()
+                engine = serve(feed, out, config)
+                t1 = time.perf_counter()
+                counts = _read_counts()
+                calls = dict(collectives.CALLS)
+                got = out.getvalue().splitlines()
+                ok = sum(g == w for g, w in zip(got, want))
+                if len(got) != len(want) or ok != len(want):
+                    raise AssertionError(
+                        f"{name} under {label} run {run}: {ok}/{len(want)} "
+                        f"lines equal the .result\n got: {got}\nwant: "
+                        f"{want}")
+                _check_tiers(name, "auto", engine.tiers,
+                             sum(line != "F" for line in work))
+                if comp and run > 1:
+                    _check_taught(name, engine.counts)
+                    if engine.counts["segment_reads"]:
+                        raise AssertionError(
+                            f"{name} under {label} run {run}: "
+                            f"{engine.counts['segment_reads']} totals read")
+                run_strategies = collections.Counter(
+                    getattr(engine, "join_strategies", ()))
+                strategies.update(run_strategies)
+                k1[f"{label} {name} run {run}"] = counts["K1"]
+                prep, timed = feed.t_serving - t0, t1 - feed.t_serving
+                single = phases["compiled auto" if comp else "operator auto",
+                                name, min(run, 2 if comp else 1)]
+                syncs = engine.counts["segment_reads"] + engine.counts.get(
+                    "cap_reads", 0)
+                print(f"mesh [{name} {label} run {run}] {ok}/{len(want)} "
+                      f"lines equal {name}.result; engine "
+                      f"{type(engine).__name__} {engine.counts}; "
+                      f"collectives {calls}; join strategies "
+                      f"{dict(run_strategies)}; K1 {counts['K1']} "
+                      f"launches; host syncs {syncs}; served by tier "
+                      f"{dict(engine.tiers)}; prep {prep:.3f} s, timed "
+                      f"phase {timed:.3f} s (single device, phase 5: prep "
+                      f"{single[0]:.3f} s, timed phase {single[1]:.3f} s) "
+                      f"({card})", flush=True)
+                del engine
+    if not all(k1[f"mesh4 a2a compiled bigdom run {r}"] > 0
+               for r in range(1, RUNS_PER_WORKLOAD + 1)):
+        raise AssertionError(f"bigdom on the mesh: K1 never launched {k1}")
+    missing = {"broadcast", "shuffle", "skew"} - set(strategies)
+    if missing:
+        raise AssertionError(f"phase 8 served no {sorted(missing)} join: "
+                             f"{dict(strategies)}")
+    print(f"mesh join strategies over phase 8: {dict(strategies)} ({card})",
+          flush=True)
+    return k1
+
+
 def _check_path(name: str, label: str, counts: dict, table_joins) -> None:
     """The kernels of the path ran, and the forced member's kernel branch
     served at least one join.  `label` is the fused-join member."""
@@ -1113,6 +1238,7 @@ def main() -> int:
     phase_harness(card, phases)
     fresh_process_steps(card)
     phase_trace(card, sync_free["pick"])
+    mesh_k1 = phase_mesh(card, phases)
 
     k1_main, k1_big = k1_times[K1_MAIN_CASE], k1_times[K1_BIG_BUILD_CASE]
     k4_err, k4_times = radix_kernels["slot_fill"]
@@ -1133,7 +1259,9 @@ def main() -> int:
                  launches=main["K1"], main_path_launches=main["K1"],
                  main_path_launches_per_run=k1_per_run[MAIN_PATH],
                  operator_engine_launches_per_run=k1_per_run["operator auto"],
-                 forced_launches=forced["K1"], max_abs_err=k1_err)
+                 forced_launches=forced["K1"], max_abs_err=k1_err,
+                 mesh_path_launches=sum(mesh_k1.values()),
+                 mesh_path_launches_per_run=mesh_k1)
     rows = [
         dict(name="stair_counts", replaces="sigmod2018_tpu/ops/ms_join.py:123",
              **timed(k1_main), **stair),

@@ -13,6 +13,7 @@ from typing import Union
 import torch
 
 BACKENDS = ("torch", "numpy")
+EXCHANGES = ("a2a", "ring")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,10 +90,39 @@ class EngineConfig:
     # Stats by the native loader (storage/native); False: NumPy.
     native: bool = True
 
+    # Mesh of shards the relations are row-sharded over (parallel/): 1
+    # serves on one device; n > 1 places shard i on card i mod the
+    # number of cards (parallel/mesh.py::make_mesh).
+    mesh_devices: int = 1
+
+    # The mesh's hash-shuffle transport: "a2a" (all_to_all) or "ring"
+    # (ndev - 1 neighbour hops of ppermute; parallel/collectives.py).
+    exchange: str = "a2a"
+
+    # A join whose build side holds at most this many padded rows over
+    # the whole mesh broadcasts it (all_gather) and moves no probe row;
+    # larger builds hash-shuffle both sides (parallel/dist_compiled.py).
+    bcast_threshold: int = 4096
+
+    # Skew-split joins: a shuffle join whose catalog MCV sketch shows a
+    # hot key with at least skew_factor x a shard's average row share
+    # gathers that key's rows of one side to every shard and joins the
+    # other side's hot rows in place.  0 disables.
+    skew_factor: int = 2
+
     def __post_init__(self):
         if self.backend not in BACKENDS:
             raise ValueError(f"S18_BACKEND={self.backend!r}: expected one "
                              f"of {BACKENDS}")
+        if self.exchange not in EXCHANGES:
+            raise ValueError(f"S18_EXCHANGE={self.exchange!r}: expected "
+                             f"one of {EXCHANGES}")
+        for name, value, least in (("S18_MESH", self.mesh_devices, 1),
+                                   ("S18_BCAST", self.bcast_threshold, 0),
+                                   ("S18_SKEW", self.skew_factor, 0)):
+            if value < least:
+                raise ValueError(f"{name}={value}: expected an integer "
+                                 f">= {least}")
 
     def device(self) -> torch.device:
         if self.platform == "cuda":
@@ -128,6 +158,10 @@ class EngineConfig:
                                               _flag("S18_TRACE", "0")),
             async_prep=_flag("S18_ASYNC_PREP", "1") != "0",
             native=_flag("S18_NATIVE", "1") != "0",
+            mesh_devices=int(_flag("S18_MESH", "1")),
+            exchange=_flag("S18_EXCHANGE", "a2a"),
+            bcast_threshold=int(_flag("S18_BCAST", "4096")),
+            skew_factor=int(_flag("S18_SKEW", "2")),
         )
 
 

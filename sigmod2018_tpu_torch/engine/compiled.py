@@ -213,23 +213,35 @@ class CompiledTorchEngine(TorchEngine):
             if self._learned_classes.get(text) == classes:
                 return
             self._learned_classes[text] = classes
-            fp = self._learned_path
-            if fp is None:
-                return
-            try:
-                os.makedirs(os.path.dirname(fp), exist_ok=True)
-                fd, tmp = tempfile.mkstemp(dir=os.path.dirname(fp),
-                                           suffix=".json")
-                with os.fdopen(fd, "w") as fh:
-                    json.dump({k: list(v) for k, v in
-                               self._learned_classes.items()}, fh)
-                os.replace(tmp, fp)  # atomic: concurrent servers race benignly
-            except OSError as exc:
-                # Serving goes on: a process that cannot persist its
-                # classes only costs the next one a learning run.
-                self._learned_path = None
-                print(f"learned size classes not persisted: {exc!r}",
-                      file=sys.stderr)
+            self._persist_learned()
+
+    def _forget(self, text: str) -> None:
+        """Drop a text's learned values (the mesh engine's, when a line
+        sized from them missed and its retry learned nothing new)."""
+        with self._learn_lock:
+            if self._learned_classes.pop(text, None) is not None:
+                self._persist_learned()
+
+    def _persist_learned(self) -> None:
+        """Write the learned classes to the prep cache (under
+        _learn_lock)."""
+        fp = self._learned_path
+        if fp is None:
+            return
+        try:
+            os.makedirs(os.path.dirname(fp), exist_ok=True)
+            fd, tmp = tempfile.mkstemp(dir=os.path.dirname(fp),
+                                       suffix=".json")
+            with os.fdopen(fd, "w") as fh:
+                json.dump({k: list(v) for k, v in
+                           self._learned_classes.items()}, fh)
+            os.replace(tmp, fp)  # atomic: concurrent servers race benignly
+        except OSError as exc:
+            # Serving goes on: a process that cannot persist its
+            # classes only costs the next one a learning run.
+            self._learned_path = None
+            print(f"learned size classes not persisted: {exc!r}",
+                  file=sys.stderr)
 
     def _make_recorder(self, query: Query):
         def record(totals: Tuple[int, ...]) -> None:
@@ -363,13 +375,13 @@ class CompiledTorchEngine(TorchEngine):
             classes.append(cls)
         return tuple(classes)
 
-    def _static_plan(self, query: Query):
+    def _static_plan(self, query: Query, use_planner: bool = True):
         """(join order, referenced (relation, column) pairs, number of
         intermediate joins to size, their indices in the order), from the
-        component structure alone.  Raises _Fallback for a query that
-        needs a cartesian product."""
+        component structure alone; the text order when not use_planner.
+        Raises _Fallback for a query that needs a cartesian product."""
         joins = query.joins
-        if len(joins) > 1:
+        if use_planner and len(joins) > 1:
             joins = plan_joins(query, self.catalog)
         joins = tuple(joins)
         self._explain_plan(query, joins)

@@ -163,6 +163,13 @@ def _as_i64(n: Count, device) -> torch.Tensor:
 class TorchEngine:
     """Executes contest queries against a Catalog on one torch device."""
 
+    # Prep-time join artifacts (presorts, key tables' prefix tables, radix
+    # artifacts) feed the fused final join and fill the prefetch.  The
+    # mesh engines (parallel/) re-partition the build side in their
+    # shuffle, so they set this False: the prefetch then copies the
+    # columns only, and the fused join takes none of them.
+    prep_join_artifacts = True
+
     def __init__(self, catalog: Catalog,
                  config: EngineConfig = DEFAULT_CONFIG):
         self.catalog = catalog
@@ -316,6 +323,9 @@ class TorchEngine:
         in threads: the copies, sorts and NumPy passes release the
         interpreter lock, and `_once` builds each artifact once."""
         def one_column(rid: int, cid: int, ncols: int) -> None:
+            if not self.prep_join_artifacts:
+                self.device_column(rid, cid)
+                return
             self.device_sorted_column(rid, cid)
             if self.device_key_table(rid, cid) is not None:
                 for vcid in range(ncols):
@@ -706,11 +716,12 @@ class TorchEngine:
         pb, pc = ((jp.binding2, jp.column2) if build_left
                   else (jp.binding1, jp.column1))
         presorted = presorted_p = table = None
-        if comp_b is None:
+        prep = self.prep_join_artifacts
+        if comp_b is None and prep:
             presorted = self.device_sorted_column(query.relations[bb], bc)
             if tbl_b is not None:
                 table = (tbl_b, presorted[1])
-        if comp_p is None:
+        if comp_p is None and prep:
             # the staircase member consumes BOTH sides' prep sorts
             presorted_p = self.device_sorted_column(query.relations[pb], pc)
 
@@ -749,7 +760,7 @@ class TorchEngine:
             """(artifacts, pre-sorted value stack) of an unfiltered base
             side whose radix artifacts match this join's bits, else
             (None, None)."""
-            if comp is not None:
+            if comp is not None or not prep:
                 return None, None
             rel = query.relations[binding]
             art = self.device_radix_keys(rel, column)
@@ -762,7 +773,7 @@ class TorchEngine:
 
         radix_pre_b, radix_vals_b = radix_side(bb, bc, comp_b, True)
         radix_pre_p, radix_vals_p = radix_side(pb, pc, comp_p, False)
-        count, sums_b, sums_p = self._ops.fused_join_auto(
+        count, sums_b, sums_p = self._fused_join(
             keys_b, None if prefs_mode else stack(brows, Pb), n_b,
             keys_p, stack(prows, Pp), n_p,
             algo=algo, presorted=presorted, table=table,
@@ -775,3 +786,11 @@ class TorchEngine:
             s = sums_b[b_idx[vi]] if vi in b_idx else sums_p[p_idx[vi]]
             parts.append(s.reshape(1))
         return torch.cat(parts)
+
+    def _fused_join(self, keys_b, vals_b, n_b: Count, keys_p, vals_p,
+                    n_p: Count, **kw):
+        """The fused final join's member: (count, sums_build [Vb],
+        sums_probe [Vp]).  The mesh operator engine overrides it with the
+        hash-shuffle join (parallel/dist_engine.py)."""
+        return self._ops.fused_join_auto(keys_b, vals_b, n_b, keys_p, vals_p,
+                                         n_p, **kw)

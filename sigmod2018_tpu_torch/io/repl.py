@@ -25,7 +25,9 @@ The engine is `CompiledTorchEngine` (engine/compiled.py), or the
 operator-granular `TorchEngine` under S18_COMPILE_QUERIES=0 and under
 S18_TRACE (whose per-op report is the operator engine's, as in the
 reference package), or under S18_BACKEND=numpy the host oracle's
-`OracleEngine` (engine/oracle.py), which touches no device.  `serve`
+`OracleEngine` (engine/oracle.py), which touches no device.  With
+S18_MESH > 1 the first two are their mesh counterparts,
+`DistCompiledTorchEngine` and `DistTorchEngine` (parallel/).  `serve`
 returns it; `run_protocol` returns how many queries each serving tier
 answered (`TorchEngine.tiers`).  `main` prints the engine's counts (host
 reads of intermediate totals and, for the compiled engine, how each
@@ -72,10 +74,22 @@ def make_engine(catalog: Catalog, config: EngineConfig):
         from ..engine.oracle import OracleEngine
 
         return OracleEngine(catalog)
+    compiled = config.compile_queries and not config.trace
+    if config.mesh_devices > 1:
+        from ..parallel.multihost import init_distributed
+
+        init_distributed()  # raises when a multi-host runtime is asked for
+        if compiled:
+            from ..parallel.dist_compiled import DistCompiledTorchEngine
+
+            return DistCompiledTorchEngine(catalog, config)
+        from ..parallel.dist_engine import DistTorchEngine
+
+        return DistTorchEngine(catalog, config)
     from ..engine.compiled import CompiledTorchEngine
     from ..engine.executor import TorchEngine
 
-    if config.compile_queries and not config.trace:
+    if compiled:
         return CompiledTorchEngine(catalog, config)
     return TorchEngine(catalog, config)
 

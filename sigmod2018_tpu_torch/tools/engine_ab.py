@@ -4,7 +4,8 @@ with the caching allocator's view of each run's timed phase.
 Run from the repository root on a machine with an NVIDIA GPU:
 
     python -m sigmod2018_tpu_torch.tools.engine_ab [--reps 5]
-        [--workloads big,scaled] [--out build/engine_ab/engine_ab.json]
+        [--workloads big,scaled] [--mesh 4] [--profile bigdom]
+        [--out build/engine_ab/engine_ab.json]
 
 It takes the workloads of `chip_smoke.py` (`WORKLOADS`, the relation
 binaries under build/smoke/, written from their seeds when missing) and,
@@ -31,6 +32,11 @@ build/engine_ab/:
    the named workloads under `torch.profiler`: the device time of the
    timed phase in all and its largest operators.
 
+With --mesh N the variants are the compiled engine on one device and
+on a mesh of N shards (parallel/, S18_MESH=N), each at 8 and 1 batch
+threads, and there is no repeated-text pass (the mesh engine has no
+per-text fast path); --profile then profiles those two.
+
 Each run's line equals the committed .result or the script fails.  It
 prints one line per run and, per workload, the medians of each variant,
 with the card's name and power limit, and writes every record to --out.
@@ -54,8 +60,14 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[2]
 PLATFORM = "cuda"
-VARIANTS = (("operator", False, 8), ("compiled", True, 8),
-            ("operator w1", False, 1), ("compiled w1", True, 1))
+# (label, compiled engine, batch threads, mesh shards)
+VARIANTS = (("operator", False, 8, 1), ("compiled", True, 8, 1),
+            ("operator w1", False, 1, 1), ("compiled w1", True, 1, 1))
+
+
+def mesh_variants(n: int) -> tuple:
+    return (("compiled", True, 8, 1), (f"compiled mesh{n}", True, 8, n),
+            ("compiled w1", True, 1, 1), (f"compiled mesh{n} w1", True, 1, n))
 REPEATED = ("operator", "compiled planned", "compiled fast path")
 GIB = float(1 << 30)
 
@@ -114,7 +126,7 @@ class _FetchClock:
 
 
 def serve_once(name: str, compiled: bool, workers: int, files,
-               on_serving=None) -> tuple:
+               on_serving=None, mesh: int = 1) -> tuple:
     """One protocol run of a workload: (record, engine)."""
     from sigmod2018_tpu_torch.config import EngineConfig
     from sigmod2018_tpu_torch.engine import executor
@@ -127,7 +139,8 @@ def serve_once(name: str, compiled: bool, workers: int, files,
     out = io.StringIO()
     # prep before serving, so that _Feed's split is prep / timed phase
     config = EngineConfig(platform=PLATFORM, compile_queries=compiled,
-                          batch_workers=workers, async_prep=False)
+                          batch_workers=workers, async_prep=False,
+                          mesh_devices=mesh)
     t0 = time.perf_counter()
     with _FetchClock(executor) as clock:
         engine = serve(feed, out, config)
@@ -182,17 +195,22 @@ def _device_us(evt) -> float:
                    getattr(evt, "self_cuda_time_total", 0.0))
 
 
-def profile_engines(name: str, files, card: str) -> dict:
-    """One run of each engine under torch.profiler (timed phase only):
+def profile_engines(name: str, files, card: str, mesh: int = 1) -> dict:
+    """One run of each engine (the compiled one on one device and on the
+    mesh with mesh > 1) under torch.profiler, timed phase only:
     {engine: (device ms in all, [(op, device ms, calls)] largest 12)}."""
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
-    for label, compiled in (("operator", False), ("compiled", True)):
+    engines = ((("operator", False, 1), ("compiled", True, 1)) if mesh == 1
+               else (("compiled", True, 1), (f"compiled mesh{mesh}", True,
+                                             mesh)))
+    for label, compiled, shards in engines:
         prof = profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA])
         try:
-            rec = serve_once(name, compiled, 8, files, prof.start)[0]
+            rec = serve_once(name, compiled, 8, files, prof.start,
+                             mesh=shards)[0]
         finally:
             torch.cuda.synchronize()
             prof.stop()
@@ -210,23 +228,48 @@ def profile_engines(name: str, files, card: str) -> dict:
 
 
 def run_workload(name: str, reps: int, card: str,
-                 profiled: bool = False) -> dict:
+                 profiled: bool = False, mesh: int = 1) -> dict:
     import chip_smoke
 
     files = chip_smoke.workload_files(name)
-    records = {label: [] for label, _, _ in VARIANTS}
-    serve_once(name, True, 8, files)  # teaches the size classes
+    variants = VARIANTS if mesh == 1 else mesh_variants(mesh)
+    records = {v[0]: [] for v in variants}
+    for shards in sorted({v[3] for v in variants}):
+        serve_once(name, True, 8, files, mesh=shards)  # teaches the classes
     for r in range(-1, reps):  # round -1 is untimed
-        turn = r % len(VARIANTS)
-        for label, compiled, workers in VARIANTS[turn:] + VARIANTS[:turn]:
+        turn = r % len(variants)
+        for label, compiled, workers, shards in (variants[turn:]
+                                                 + variants[:turn]):
             # the engine goes at once: the next run's peaks hold one
-            rec = serve_once(name, compiled, workers, files)[0]
+            rec = serve_once(name, compiled, workers, files,
+                             mesh=shards)[0]
             if r < 0:
                 continue
             records[label].append(dict(rec, round=r))
             print(f"engine_ab [{name} {label} round {r}] " + " ".join(
                 f"{k}={v:.6f}" if isinstance(v, float) else f"{k}={v}"
                 for k, v in rec.items()), flush=True)
+    summary = {label: {k: statistics.median(rec[k] for rec in recs)
+                       for k in ("prep_s", "timed_s", "dispatch_s", "fetch_s",
+                                 "peak_allocated_gib", "peak_reserved_gib",
+                                 "new_segments")}
+               for label, recs in records.items()}
+    repeated = {}
+    if mesh == 1:
+        repeated = repeated_passes(name, files, reps)
+        summary["repeated-text pass s"] = {
+            label: statistics.median(secs)
+            for label, secs in repeated.items()}
+    print(f"engine_ab summary [{name}] medians of {reps} rounds ({card}): "
+          f"{json.dumps(summary)}", flush=True)
+    result = dict(runs=records, repeated=repeated, summary=summary)
+    if profiled:
+        result["profile"] = profile_engines(name, files, card, mesh)
+    return result
+
+
+def repeated_passes(name: str, files, reps: int) -> dict:
+    """{variant: seconds of each repeated-text pass} (REPEATED)."""
     work, want = files[1], files[2]
     repeated = {label: [] for label in REPEATED}
     _, engine = serve_once(name, False, 8, files)
@@ -239,20 +282,7 @@ def run_workload(name: str, reps: int, card: str,
             if label == "compiled planned":
                 engine._fastpath.clear()
             repeated[label].append(repeated_pass(engine, work, want, 8))
-    del engine
-    summary = {label: {k: statistics.median(rec[k] for rec in recs)
-                       for k in ("prep_s", "timed_s", "dispatch_s", "fetch_s",
-                                 "peak_allocated_gib", "peak_reserved_gib",
-                                 "new_segments")}
-               for label, recs in records.items()}
-    summary["repeated-text pass s"] = {label: statistics.median(secs)
-                                       for label, secs in repeated.items()}
-    print(f"engine_ab summary [{name}] medians of {reps} rounds ({card}): "
-          f"{json.dumps(summary)}", flush=True)
-    result = dict(runs=records, repeated=repeated, summary=summary)
-    if profiled:
-        result["profile"] = profile_engines(name, files, card)
-    return result
+    return repeated
 
 
 def main(argv=None) -> int:
@@ -261,6 +291,9 @@ def main(argv=None) -> int:
     ap.add_argument("--workloads", default="big,bigdom,zipfbig,scaled,zipf")
     ap.add_argument("--profile", default="",
                     help="workloads to profile once per engine, e.g. big")
+    ap.add_argument("--mesh", type=int, default=1,
+                    help="compare the compiled engine on one device with "
+                         "it on a mesh of this many shards")
     ap.add_argument("--out", default=str(ROOT / "build" / "engine_ab"
                                          / "engine_ab.json"))
     args = ap.parse_args(argv)
@@ -282,9 +315,10 @@ def main(argv=None) -> int:
         if not (chip_smoke.SMOKE_DIR / name / "r0").exists():
             write_relations(chip_smoke.SMOKE_DIR / name,
                             **chip_smoke.WORKLOADS[name])
-    result = {"card": card, "reps": args.reps,
+    result = {"card": card, "reps": args.reps, "mesh": args.mesh,
               "workloads": {n: run_workload(n, args.reps, card,
-                                            n in args.profile.split(","))
+                                            n in args.profile.split(","),
+                                            args.mesh)
                             for n in names}}
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(result, indent=1))

@@ -42,7 +42,7 @@ def test_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20  # every module was imported
+    assert int(proc.stdout.split()[-1]) >= 26  # every module was imported
 
 
 @pytest.mark.parametrize("module", ["frontend.sql", "engine.oracle",
@@ -54,6 +54,21 @@ def test_blowup_path_modules_import_with_jax_blocked(module):
     and instruments, each on its own in a fresh process: the oracle and
     the NumPy twin need no torch device either, and importing the native
     loader builds nothing."""
+    _import_alone(module)
+
+
+@pytest.mark.parametrize("module", ["parallel", "parallel.mesh",
+                                    "parallel.collectives", "parallel.dist",
+                                    "parallel.dist_engine",
+                                    "parallel.dist_compiled",
+                                    "parallel.multihost"])
+def test_mesh_modules_import_with_jax_blocked(module):
+    """The mesh path's modules, each on its own in a fresh process, with
+    neither jax nor the JAX package importable."""
+    _import_alone(module)
+
+
+def _import_alone(module: str) -> None:
     code = _BLOCKED_IMPORT.split("import sigmod2018_tpu_torch")[0] + (
         f"import importlib\n"
         f"m = importlib.import_module('sigmod2018_tpu_torch.{module}')\n"
