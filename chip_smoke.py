@@ -95,6 +95,22 @@ Phases, each of which must pass:
    host syncs, and its prep and timed phase beside phase 5's
    single-device ones.
 
+9. the tools (sigmod2018_tpu_torch/tools/), on the card: the smoke gate
+   (tools.smoke: every fused-join member three times, the radix merge
+   branch, the emitting counts, a compiled and a factorized query) must
+   pass; the differential fuzz (tools.fuzz, seed 99) must find 0
+   failures in 200 queries under auto and under the forced ms, radix and
+   qd members, and in 60 queries on a 4-shard mesh, each mode's kernel
+   counts set to 0 just before it and read just after (K1 must launch
+   under ms, K4 and K5 under radix and qd); then the probe and fused
+   crossovers (tools.bench_probe, 2^12..2^22), the members and stages
+   against their floors (tools.roofline, 2^21, without the K1, K4 and K5
+   stages that phase 3 times) and the primitive rates (tools.microbench,
+   2^23) print with the card's name and power limit, and so do the
+   phase's seconds.  Each timed call waits on at least twice its host
+   issue time (utils/timing.py), and a line names the calls whose host
+   issue takes as long as their device time (host-bound).
+
 Before them come the prep and timed phases of both engines per workload,
 side by side.  The line before the last is the kernel table as JSON (per
 kernel: time, plain and library times, bound and its share, launches on
@@ -122,7 +138,9 @@ from pathlib import Path
 
 import torch
 
-from sigmod2018_tpu_torch.utils.floors import HBM_BYTES_PER_S
+from sigmod2018_tpu_torch.utils.floors import kernel_bound as bound
+from sigmod2018_tpu_torch.utils.timing import (card_line, flush_buffer,
+                                                median_ms)
 
 ROOT = Path(__file__).resolve().parent
 SMOKE_DIR = ROOT / "build" / "smoke"
@@ -131,39 +149,6 @@ RUNS_PER_WORKLOAD = 2
 KERNEL_SOURCES = ("stair_counts", "slot_fill", "probe_counts")
 K1_MAIN_CASE = "2^21 keys<2^20"
 K1_BIG_BUILD_CASE = "build 2^24 x probe 2^21"
-SPIN_CYCLES = 400_000  # ~0.2 ms of device time before each timed call
-
-
-def bound(kernel: str, **n) -> tuple:
-    """(ms, bytes): the least time the card could take for one call,
-    the bytes it must move over the memory rate, each input byte read
-    once and each output byte written once.  Live rows only where the
-    kernel reads only those (the work depends on the data):
-
-    - K1 (n_b, n_p, Pp): live build and probe u64 keys read (none when
-      a side is empty: every count is then 0), int32 cnt and lo written
-      for all Pp probe rows;
-    - K4 (K, B, SP, live): K u64 arrays' live rows read, int32 starts
-      and cnts read, the [K, B, SP] u64 matrix written;
-    - K5 (B, Sb, Sp, live_b, live_p): the windows' live u64 keys (the
-      caller counts a bucket's only where both its windows hold keys) and
-      the int32 [B, 2] windows read, int32 mc [B, Sb] and pc [B, Sp]
-      written.
-
-    Their operations (compares and adds, a few per byte moved) stay far
-    below the card's integer rate, so bytes bound all three."""
-    if kernel == "K1":
-        keys = n["n_b"] + n["n_p"] if n["n_b"] and n["n_p"] else 0
-        nbytes = 8 * keys + 8 * n["Pp"]
-    elif kernel == "K4":
-        nbytes = 8 * n["K"] * n["live"] + 8 * n["B"] \
-            + 8 * n["K"] * n["B"] * n["SP"]
-    elif kernel == "K5":
-        nbytes = 8 * (n["live_b"] + n["live_p"]) + 16 * n["B"] \
-            + 4 * n["B"] * (n["Sb"] + n["Sp"])
-    else:
-        raise ValueError(f"no bound for {kernel}")
-    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
 
 # tools/regen_workloads.sh
 WORKLOADS = {
@@ -186,40 +171,6 @@ REQUIRED_TIERS = {"zipfbig": ("factorized_proactive", "factorized_blowup"),
 # zipfbig's 4th query joins relation 1 with itself on these columns
 MESSAGE_EDGE = dict(srel=1, scol=2, rrel=1, rcol=0)
 MESSAGE_QUERY = 3  # index of that query among zipfbig's
-
-
-def card_line() -> str:
-    smi = shutil.which("nvidia-smi")
-    if smi is not None:
-        proc = subprocess.run(
-            [smi, "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60)
-        if proc.returncode == 0 and proc.stdout.strip():
-            return proc.stdout.strip().splitlines()[0]
-    return (f"{torch.cuda.get_device_name(0)}, power limit not read "
-            f"(nvidia-smi unavailable)")
-
-
-def median_ms(fn, flush: torch.Tensor, reps: int = 15) -> float:
-    """Median device time of fn() by CUDA events, L2 flushed before each
-    run: a 64 MB read evicts the card's 50 MB L2 and leaves it clean (a
-    write would leave dirty lines whose write-back the timed call pays)."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        flush.sum()
-        # keep the card busy while the host prepares fn's launches, so the
-        # events time the device work and not the host's dispatch
-        torch.cuda._sleep(SPIN_CYCLES)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def kernel_cases(dev):
@@ -1154,6 +1105,51 @@ def phase_mesh(card: str, phases: dict) -> dict:
     return k1
 
 
+# (label, --join, mesh shards or 0, queries) of phase 9's fuzz runs
+FUZZ_SEED = 99
+FUZZ_RUNS = [("auto", "auto", 0, 200), ("ms", "ms", 0, 200),
+             ("radix", "radix", 0, 200), ("qd", "qd", 0, 200),
+             ("mesh 4", "auto", 4, 60)]
+# the kernels each forced member's fuzz run must launch
+FUZZ_KERNELS = {"ms": ("K1",), "radix": ("K4", "K5"), "qd": ("K4", "K5")}
+
+
+def phase_tools(card: str) -> None:
+    """Phase 9: the smoke gate, the fuzz runs of FUZZ_RUNS (each held to
+    0 failures and to the kernels FUZZ_KERNELS names), then the three
+    measuring tools' lines."""
+    from sigmod2018_tpu_torch.tools import (bench_probe, fuzz, microbench,
+                                            roofline, smoke)
+
+    t0 = time.perf_counter()
+    if smoke.main(["--platform", "cuda"]) != 0:
+        raise AssertionError("tools.smoke failed (its log names the cases)")
+    for label, join, shards, n in FUZZ_RUNS:
+        _reset_counts()
+        t1 = time.perf_counter()
+        fails = fuzz.run(n, FUZZ_SEED, platform="cuda", join=join,
+                         shards=shards)
+        counts = _read_counts()
+        print(f"fuzz [{label}] seed {FUZZ_SEED}: {n} queries, {fails} "
+              f"failures; K1 {counts['K1']}, K4 {counts['K4']}, K5 "
+              f"{counts['K5']} launches; radix branches "
+              f"{counts['radix branches']}, qd branches "
+              f"{counts['qd branches']}; {time.perf_counter() - t1:.1f} s "
+              f"({card})", flush=True)
+        if fails:
+            raise AssertionError(f"fuzz under {label}: {fails} failures")
+        missing = [k for k in FUZZ_KERNELS.get(label, ()) if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"fuzz under {label}: {missing} never "
+                                 f"launched: {counts}")
+    bench_probe.run(12, 22, "cuda")
+    # phase 3 times K1, K4 and K5 at the kernel table's shapes
+    roofline.run(21, "cuda", kernel_stages=False)
+    microbench.run(23, "cuda")
+    print(f"phase 9 (tools): {time.perf_counter() - t0:.1f} s ({card})",
+          flush=True)
+
+
 def _check_path(name: str, label: str, counts: dict, table_joins) -> None:
     """The kernels of the path ran, and the forced member's kernel branch
     served at least one join.  `label` is the fused-join member."""
@@ -1223,7 +1219,7 @@ def main() -> int:
         if log.exists():
             print(log.read_text().strip(), flush=True)
 
-    flush = torch.ones(1 << 23, dtype=torch.int64, device=dev)  # 64 MB
+    flush = flush_buffer(dev)  # 64 MB
     k1_err, k1_times = phase_kernel(dev, card, flush)
     radix_kernels = phase_radix_kernels(dev, card, flush)
     prepared = generate_workloads()
@@ -1239,6 +1235,7 @@ def main() -> int:
     fresh_process_steps(card)
     phase_trace(card, sync_free["pick"])
     mesh_k1 = phase_mesh(card, phases)
+    phase_tools(card)
 
     k1_main, k1_big = k1_times[K1_MAIN_CASE], k1_times[K1_BIG_BUILD_CASE]
     k4_err, k4_times = radix_kernels["slot_fill"]

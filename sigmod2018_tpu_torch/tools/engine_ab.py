@@ -303,8 +303,9 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     import chip_smoke
     from sigmod2018_tpu_torch.tools.workload import write_relations
+    from sigmod2018_tpu_torch.utils.timing import card_line
 
-    card = chip_smoke.card_line()
+    card = card_line()
     print(card, flush=True)
     prep = ROOT / "build" / "engine_ab" / "prep"
     shutil.rmtree(prep, ignore_errors=True)

@@ -13,8 +13,8 @@ vector pair rate) and its tile floor (the TPU's lane layout) have no
 counterpart here.
 
 `engine/trace.py` attaches these floors to the join-family ops of a
-traced query, and `chip_smoke.py::bound` counts its kernels' bytes over
-the same rate.
+traced query; `kernel_bound` counts the kernels' bytes over the same
+rate for chip_smoke.py's kernel table and tools/roofline.py.
 """
 
 from __future__ import annotations
@@ -52,6 +52,38 @@ def emit_count_floors(Pb: int, Pp: int,
                       build_key_bytes: int = KEY_BYTES) -> Dict[str, float]:
     """Floors of an emitting join's counts: keys only, no value columns."""
     return fused_join_floors(Pb, Pp, 0, 0, build_key_bytes)
+
+
+def kernel_bound(kernel: str, **n) -> tuple:
+    """(ms, bytes): the least time the card could take for one call of a
+    kernel, the bytes it must move over the memory rate, each input byte
+    read once and each output byte written once.  Live rows only where
+    the kernel reads only those (the work depends on the data):
+
+    - K1 (n_b, n_p, Pp): live build and probe u64 keys read (none when
+      a side is empty: every count is then 0), int32 cnt and lo written
+      for all Pp probe rows;
+    - K4 (K, B, SP, live): K u64 arrays' live rows read, int32 starts
+      and cnts read, the [K, B, SP] u64 matrix written;
+    - K5 (B, Sb, Sp, live_b, live_p): the windows' live u64 keys (the
+      caller counts a bucket's only where both its windows hold keys) and
+      the int32 [B, 2] windows read, int32 mc [B, Sb] and pc [B, Sp]
+      written.
+
+    Their operations (compares and adds, a few per byte moved) stay far
+    below the card's integer rate, so bytes bound all three."""
+    if kernel == "K1":
+        keys = n["n_b"] + n["n_p"] if n["n_b"] and n["n_p"] else 0
+        nbytes = 8 * keys + 8 * n["Pp"]
+    elif kernel == "K4":
+        nbytes = 8 * n["K"] * n["live"] + 8 * n["B"] \
+            + 8 * n["K"] * n["B"] * n["SP"]
+    elif kernel == "K5":
+        nbytes = 8 * (n["live_b"] + n["live_p"]) + 16 * n["B"] \
+            + 4 * n["B"] * (n["Sb"] + n["Sp"])
+    else:
+        raise ValueError(f"no bound for {kernel}")
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
 
 
 def _rows(x) -> int:

@@ -207,7 +207,9 @@ def test_message_sort_form_equals_the_port_s_message():
 def test_one_memory_rate_for_bounds_and_trace():
     from sigmod2018_tpu_torch.utils import floors
 
-    assert cs.HBM_BYTES_PER_S is floors.HBM_BYTES_PER_S == 3.35e12
+    # the kernel table's bounds are floors.py's, over the trace's rate
+    assert cs.bound is floors.kernel_bound
+    assert floors.HBM_BYTES_PER_S == 3.35e12
 
 
 def test_recording_passes_a_query_s_steps_through():
@@ -246,3 +248,23 @@ def test_harness_runs_end_with_blocking_prep():
     assert [env for _, env in cs.HARNESS_RUNS] == [
         {}, {}, {"S18_ASYNC_PREP": "0"}]
     assert "import torch" in cs.FRESH_PROCESS
+
+
+def test_one_timer_for_chip_smoke_and_the_tools():
+    from sigmod2018_tpu_torch.utils import timing
+
+    assert cs.median_ms is timing.median_ms
+    assert cs.card_line is timing.card_line
+    assert timing.SPIN_CYCLES == 400_000 and timing.FLUSH_BYTES == 64 << 20
+
+
+def test_phase_9_fuzzes_every_member_and_the_mesh():
+    assert cs.FUZZ_SEED == 99
+    assert [(label, join, shards, n) for label, join, shards, n
+            in cs.FUZZ_RUNS] == [("auto", "auto", 0, 200),
+                                 ("ms", "ms", 0, 200),
+                                 ("radix", "radix", 0, 200),
+                                 ("qd", "qd", 0, 200),
+                                 ("mesh 4", "auto", 4, 60)]
+    assert cs.FUZZ_KERNELS == {"ms": ("K1",), "radix": ("K4", "K5"),
+                               "qd": ("K4", "K5")}
