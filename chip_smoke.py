@@ -111,12 +111,31 @@ Phases, each of which must pass:
    issue time (utils/timing.py), and a line names the calls whose host
    issue takes as long as their device time (host-bound).
 
+10. multi-process serving: for each workload, two ranks of
+   `python -m sigmod2018_tpu_torch` (S18_COORD_ADDR on a free port,
+   S18_NUM_PROCS=2, S18_PROC_ID 0 and 1, S18_MESH=4: two shards a rank,
+   all on the card; collectives over gloo staged through host memory),
+   the same protocol on each one's stdin, from an emptied prep cache
+   (build/smoke/mp-prep): the all_to_all on all five workloads twice,
+   then phase 8's zipf runs under S18_SKEW=1 and S18_BCAST=2^22.  Every
+   line of both ranks must equal the .result, the tiers add up, both
+   ranks call the same collectives, K1 launches on bigdom on both ranks,
+   the second run of each workload retries nothing and reads no total,
+   and broadcast, shuffle and skew each serve a join.  Each rank's line
+   prints its collectives and transport, host syncs, prep and timed
+   phase beside phase 8's one-process mesh-4 run and phase 5's single
+   device.  Each run has a deadline, and a rank that fails or hangs
+   ends both (parallel/launch.py).  Then tools.collective_cost times one
+   call of each collective on 4 shards as two ranks and in one process
+   (host clock around the call and a synchronize).
+
 Before them come the prep and timed phases of both engines per workload,
 side by side.  The line before the last is the kernel table as JSON (per
 kernel: time, plain and library times, bound and its share, launches on
 the path that runs it, on the compiled engine's auto main path, per
 compiled auto run of each workload, under the operator engine, under
-the forced members and, for K1, on the mesh); the last line is {"ok": true, "device": {...}}.
+the forced members and, for K1, on the mesh and per rank of phase 10);
+the last line is {"ok": true, "device": {...}}.
 Any failure exits non-zero before either is printed, as does a machine
 without a CUDA device.
 
@@ -1025,7 +1044,8 @@ def phase_mesh(card: str, phases: dict) -> dict:
     mesh-4 run of each workload sized from what the first learned (no
     retry, no host read of a total), K1 launching in bigdom's mesh-4
     runs, and broadcast, shuffle and skew each serving a join.  Returns
-    {run label: K1 launches}."""
+    ({run label: K1 launches}, {(path, workload, run): (prep s, timed
+    s)})."""
     import collections
 
     from sigmod2018_tpu_torch.config import EngineConfig
@@ -1042,7 +1062,7 @@ def phase_mesh(card: str, phases: dict) -> dict:
     MESH_PREP_CACHE.mkdir(parents=True)
     os.environ["S18_PREP_CACHE"] = str(MESH_PREP_CACHE)
     strategies = collections.Counter()
-    k1 = {}
+    k1, times = {}, {}
     for label, mesh_cfg, comp, runs, names in MESH_PATHS:
         config = EngineConfig(platform="cuda", compile_queries=comp,
                               async_prep=False, **mesh_cfg)
@@ -1078,6 +1098,7 @@ def phase_mesh(card: str, phases: dict) -> dict:
                 strategies.update(run_strategies)
                 k1[f"{label} {name} run {run}"] = counts["K1"]
                 prep, timed = feed.t_serving - t0, t1 - feed.t_serving
+                times[label, name, run] = (prep, timed)
                 single = phases["compiled auto" if comp else "operator auto",
                                 name, min(run, 2 if comp else 1)]
                 syncs = engine.counts["segment_reads"] + engine.counts.get(
@@ -1102,7 +1123,7 @@ def phase_mesh(card: str, phases: dict) -> dict:
                              f"{dict(strategies)}")
     print(f"mesh join strategies over phase 8: {dict(strategies)} ({card})",
           flush=True)
-    return k1
+    return k1, times
 
 
 # (label, --join, mesh shards or 0, queries) of phase 9's fuzz runs
@@ -1148,6 +1169,184 @@ def phase_tools(card: str) -> None:
     microbench.run(23, "cuda")
     print(f"phase 9 (tools): {time.perf_counter() - t0:.1f} s ({card})",
           flush=True)
+
+
+# Phase 10: two ranks of `python -m sigmod2018_tpu_torch` serve together
+# (S18_COORD_ADDR on a free port, S18_NUM_PROCS=2, S18_PROC_ID 0 and 1),
+# S18_MESH=4: two shards a rank, both ranks' shards on the one card, the
+# collectives over gloo through host memory.  (label, phase 8's run of
+# the same switches on one process, S18_* switches, runs per workload,
+# workloads.)  The a2a runs come first, from an emptied prep cache that
+# both ranks share (rank 0 writes the learned file): the first run
+# teaches the second.  The zipf runs are phase 8's strategy runs.
+MP_WORLD = 2
+MP_PATHS = [
+    ("2 ranks mesh4 a2a", "mesh4 a2a compiled", {}, RUNS_PER_WORKLOAD,
+     tuple(WORKLOADS)),
+    ("2 ranks mesh4 skew", "mesh4 skew compiled", {"S18_SKEW": "1"}, 1,
+     ("zipf",)),
+    ("2 ranks mesh4 broadcast", "mesh4 broadcast compiled",
+     {"S18_BCAST": str(1 << 22)}, 1, ("zipf",)),
+]
+MP_PREP_CACHE = SMOKE_DIR / "mp-prep"
+MP_TIMEOUT_S = 300  # per run of both ranks; a hang fails the phase
+MP_K1_WORKLOADS = ("bigdom",)  # K1 must launch on every rank here
+MP_STRATEGIES = ("broadcast", "shuffle", "skew")
+
+
+def _rank_env(**s18) -> dict:
+    """A child's environment: this one without its S18_* switches (the
+    earlier phases set S18_PREP_CACHE), the repository importable."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("S18_")}
+    return dict(env, PYTHONPATH=str(ROOT), **s18)
+
+
+def multiprocess_runs(platform: str, files: dict, paths=MP_PATHS,
+                      prep_cache: Path = MP_PREP_CACHE,
+                      timeout: float = MP_TIMEOUT_S,
+                      k1_workloads=MP_K1_WORKLOADS,
+                      strategies=MP_STRATEGIES) -> list:
+    """Every run of `paths` as MP_WORLD ranks on `files` ({workload:
+    (relation paths, .work lines, .result lines)}), each rank held to
+    every line of the .result, its tiers adding up, the same collective
+    calls as the other ranks, K1 launching on `k1_workloads`, and on a
+    taught run (run > 1) no retry and no total read; over all runs each
+    of `strategies` serves a join.  Returns one record per run: label,
+    phase 8's label, workload, run, whole-run seconds and each rank's
+    `process {..}` report with its lines equal."""
+    from sigmod2018_tpu_torch.parallel.launch import run_ranks
+
+    shutil.rmtree(prep_cache, ignore_errors=True)
+    prep_cache.mkdir(parents=True)
+    base = _rank_env(S18_PLATFORM=platform, S18_MESH="4",
+                     S18_PREP_CACHE=str(prep_cache), S18_ASYNC_PREP="0")
+    records, served = [], set()
+    for label, mesh_label, extra, runs, names in paths:
+        for name in names:
+            init, work, want = files[name]
+            text = "\n".join(init + ["Done"] + work) + "\n"
+            queries = sum(line != "F" for line in work)
+            for run in range(1, runs + 1):
+                t0 = time.perf_counter()
+                outs = run_ranks([sys.executable, "-m",
+                                  "sigmod2018_tpu_torch"], MP_WORLD,
+                                 dict(base, **extra), text, timeout)
+                wall = time.perf_counter() - t0
+                reports = []
+                for rank, (stdout, stderr) in enumerate(outs):
+                    got = stdout.splitlines()
+                    ok = sum(g == w for g, w in zip(got, want))
+                    if len(got) != len(want) or ok != len(want):
+                        raise AssertionError(
+                            f"{name} under {label} run {run}, rank {rank}:"
+                            f" {ok}/{len(want)} lines equal the .result\n"
+                            f" got: {got}\nwant: {want}")
+                    rep = json.loads(next(
+                        ln for ln in stderr.splitlines()
+                        if ln.startswith("process {"))[len("process "):])
+                    where = f"{name} under {label} run {run}, rank {rank}"
+                    _check_tiers(name, "auto", rep["tiers"], queries)
+                    if run > 1:
+                        _check_taught(where, rep["counts"])
+                        if rep["counts"]["segment_reads"]:
+                            raise AssertionError(
+                                f"{where}: {rep['counts']['segment_reads']}"
+                                f" totals read")
+                    if name in k1_workloads and rep["launches"]["K1"] <= 0:
+                        raise AssertionError(f"{where}: K1 never launched")
+                    served.update(rep["join_strategies"])
+                    reports.append(dict(rep, lines_equal=ok))
+                if any(r["collectives"] != reports[0]["collectives"]
+                       for r in reports):
+                    raise AssertionError(
+                        f"{name} under {label} run {run}: the ranks' "
+                        f"collective calls differ: "
+                        f"{[r['collectives'] for r in reports]}")
+                records.append(dict(label=label, mesh_label=mesh_label,
+                                    name=name, run=run, wall=wall,
+                                    ranks=reports))
+    missing = set(strategies) - served
+    if missing:
+        raise AssertionError(f"the ranks served no {sorted(missing)} join")
+    return records
+
+
+def collective_costs(platform: str, timeout: float = MP_TIMEOUT_S) -> tuple:
+    """tools/collective_cost.py on 4 shards in one process and as
+    MP_WORLD ranks: (one process's report, [each rank's report])."""
+    from sigmod2018_tpu_torch.parallel.launch import run_ranks
+
+    argv = [sys.executable, "-m",
+            "sigmod2018_tpu_torch.tools.collective_cost", "--platform",
+            platform]
+    env = _rank_env()
+    one = subprocess.run(argv, env=env, capture_output=True, text=True,
+                         timeout=timeout)
+    if one.returncode != 0:
+        raise AssertionError(f"collective_cost in one process: rc "
+                             f"{one.returncode}\n{one.stderr[-4000:]}")
+    ranks = run_ranks(argv, MP_WORLD, env, "", timeout)
+    return (json.loads(one.stdout.splitlines()[-1]),
+            [json.loads(out.splitlines()[-1]) for out, _ in ranks])
+
+
+def phase_multiprocess(card: str, phases: dict, mesh_times: dict) -> dict:
+    """Phase 10: MP_PATHS on the card, every rank's line beside phase 8's
+    one-process mesh-4 run and phase 5's single device, then the cost of
+    each collective as two ranks and in one process.  Returns {run and
+    rank label: K1 launches}."""
+    from sigmod2018_tpu_torch.tools import collective_cost
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # this process's cached blocks, for the ranks
+    records = multiprocess_runs("cuda", {n: workload_files(n)
+                                         for n in WORKLOADS})
+    k1 = {}
+    for rec in records:
+        name, run = rec["name"], rec["run"]
+        mesh = mesh_times[rec["mesh_label"], name, run]
+        single = phases["compiled auto", name, run]
+        for rep in rec["ranks"]:
+            k1[f"{rec['label']} {name} run {run} rank {rep['rank']}"] = (
+                rep["launches"]["K1"])
+            counts = rep["counts"]
+            print(f"multi-process [{name} {rec['label']} run {run}] rank "
+                  f"{rep['rank']} of {rep['world']}: {rep['lines_equal']}/"
+                  f"{sum(rep['tiers'].values())} lines equal {name}.result; "
+                  f"collectives "
+                  f"{rep['collectives']} over {rep['transport']}; join "
+                  f"strategies {rep['join_strategies']}; launches "
+                  f"{rep['launches']}; host syncs "
+                  f"{counts['segment_reads']}; engine {counts}; served by "
+                  f"tier {rep['tiers']}; prep {rep['prep_s']:.3f} s, timed "
+                  f"phase {rep['timed_s']:.3f} s; both ranks' processes "
+                  f"{rec['wall']:.3f} s (one process on 4 shards, phase 8: "
+                  f"prep {mesh[0]:.3f} s, timed phase {mesh[1]:.3f} s; one "
+                  f"device, phase 5: prep {single[0]:.3f} s, timed phase "
+                  f"{single[1]:.3f} s) ({card})", flush=True)
+    one, ranks = collective_costs("cuda")
+    for case, c in one["cases"].items():
+        print(f"collective cost [{case}] as {MP_WORLD} ranks over "
+              f"{ranks[0]['transport']}: "
+              + " / ".join(f"{r['cases'][case]['ms']:.4f}" for r in ranks)
+              + f" ms per rank; in one process ({one['transport']}): "
+              f"{c['ms']:.4f} ms; bytes sent per rank "
+              f"{ranks[0]['cases'][case]['bytes']:,} (host clock around the "
+              f"call and a synchronize, median of "
+              f"{collective_cost.REPS}) ({card})", flush=True)
+    big = (f"all_to_all [{collective_cost.SHARDS}, "
+           f"{collective_cost.A2A_ROWS[-1]:,}]")
+    print(f"collective cost [{big} in parts] as {MP_WORLD} ranks: "
+          + "; ".join(f"{part} " + " / ".join(
+              f"{r['a2a_parts'][part]:.4f}" for r in ranks) + " ms"
+              for part in ranks[0]["a2a_parts"])
+          + " per rank (stage: device to host and the send buffer's "
+          f"layout; exchange: gloo, after a barrier; unstage: layout and "
+          f"host to device; median of {collective_cost.REPS}) ({card})",
+          flush=True)
+    print(f"phase 10 (multi-process): {time.perf_counter() - t0:.1f} s "
+          f"({card})", flush=True)
+    return k1
 
 
 def _check_path(name: str, label: str, counts: dict, table_joins) -> None:
@@ -1234,8 +1433,9 @@ def main() -> int:
     phase_harness(card, phases)
     fresh_process_steps(card)
     phase_trace(card, sync_free["pick"])
-    mesh_k1 = phase_mesh(card, phases)
+    mesh_k1, mesh_times = phase_mesh(card, phases)
     phase_tools(card)
+    mp_k1 = phase_multiprocess(card, phases, mesh_times)
 
     k1_main, k1_big = k1_times[K1_MAIN_CASE], k1_times[K1_BIG_BUILD_CASE]
     k4_err, k4_times = radix_kernels["slot_fill"]
@@ -1258,7 +1458,9 @@ def main() -> int:
                  operator_engine_launches_per_run=k1_per_run["operator auto"],
                  forced_launches=forced["K1"], max_abs_err=k1_err,
                  mesh_path_launches=sum(mesh_k1.values()),
-                 mesh_path_launches_per_run=mesh_k1)
+                 mesh_path_launches_per_run=mesh_k1,
+                 multiprocess_path_launches=sum(mp_k1.values()),
+                 multiprocess_path_launches_per_run=mp_k1)
     rows = [
         dict(name="stair_counts", replaces="sigmod2018_tpu/ops/ms_join.py:123",
              **timed(k1_main), **stair),

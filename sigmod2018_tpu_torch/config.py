@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -141,7 +141,7 @@ class EngineConfig:
         def _flag(name: str, default: str) -> str:
             return os.environ.get(name, default)
 
-        return EngineConfig(
+        config = EngineConfig(
             platform=_flag("S18_PLATFORM", "cuda"),
             join_algo=_flag("S18_JOIN", "auto"),
             key_table_max=int(_flag("S18_KEYTABLE", str(1 << 22))),
@@ -163,6 +163,37 @@ class EngineConfig:
             bcast_threshold=int(_flag("S18_BCAST", "4096")),
             skew_factor=int(_flag("S18_SKEW", "2")),
         )
+        procs = process_env()
+        n = config.mesh_devices
+        if procs and n > 1 and n % procs[1]:
+            # the shards split host-major over the ranks
+            raise ValueError(f"S18_MESH={n}: expected a multiple of "
+                             f"S18_NUM_PROCS={procs[1]}")
+        return config
+
+
+def process_env() -> Optional[Tuple[str, int, int]]:
+    """(S18_COORD_ADDR, S18_NUM_PROCS, S18_PROC_ID), or None when
+    S18_COORD_ADDR is unset; a missing or out-of-range count or id
+    raises ValueError naming its variable."""
+    addr = os.environ.get("S18_COORD_ADDR")
+    if not addr:
+        return None
+    values = []
+    for name in ("S18_NUM_PROCS", "S18_PROC_ID"):
+        raw = os.environ.get(name)
+        try:
+            values.append(int(raw))
+        except (TypeError, ValueError):
+            raise ValueError(f"S18_COORD_ADDR={addr!r} needs {name} (an "
+                             f"integer), not {raw!r}") from None
+    world, rank = values
+    if world < 1:
+        raise ValueError(f"S18_NUM_PROCS={world}: expected an integer >= 1")
+    if not 0 <= rank < world:
+        raise ValueError(f"S18_PROC_ID={rank}: expected 0 <= id < "
+                         f"S18_NUM_PROCS={world}")
+    return addr, world, rank
 
 
 DEFAULT_CONFIG = EngineConfig()

@@ -32,12 +32,27 @@ returns it; `run_protocol` returns how many queries each serving tier
 answered (`TorchEngine.tiers`).  `main` prints the engine's counts (host
 reads of intermediate totals and, for the compiled engine, how each
 query was sized) and then the tiers on stderr at exit.
+
+With S18_COORD_ADDR, S18_NUM_PROCS and S18_PROC_ID set and S18_MESH > 1,
+W processes serve together (parallel/multihost.py): each reads the
+protocol on its own stdin and writes every answer line, and the mesh's
+shards split over them.  The collectives of one rank must meet the same
+collectives of the others, so under a group one thread dispatches each
+batch in input order, whatever S18_WORKERS says; the prefetch issues no
+collective and keeps its thread, except that a warm replay (which
+serves queries) runs before the first query is read.  `main` then also
+prints one `process {..}` JSON line on stderr (rank, world size,
+transport, collective calls by kind, K1/K4/K5 launches, the engine's
+counts, tiers and join strategies, prep and timed seconds) and leaves
+the group at exit.
 """
 
 from __future__ import annotations
 
+import json
 import sys
 import threading
+import time
 from typing import IO, Dict, List, Optional
 
 from ..config import EngineConfig
@@ -78,7 +93,7 @@ def make_engine(catalog: Catalog, config: EngineConfig):
     if config.mesh_devices > 1:
         from ..parallel.multihost import init_distributed
 
-        init_distributed()  # raises when a multi-host runtime is asked for
+        init_distributed()  # joins S18_COORD_ADDR's group
         if compiled:
             from ..parallel.dist_compiled import DistCompiledTorchEngine
 
@@ -132,8 +147,9 @@ def serve(stdin: IO[str], stdout: IO[str],
 
     catalog = Catalog.from_files(paths, native=config.native)
     engine = make_engine(catalog, config)
+    grouped = _in_group(config)
     prep = None
-    if config.async_prep:
+    if config.async_prep and not (grouped and config.warm_replay):
         prep = _Prep(engine)
     else:
         engine.prefetch()
@@ -150,9 +166,13 @@ def serve(stdin: IO[str], stdout: IO[str],
             stdout.write(line + "\n")
         stdout.flush()
 
-    pool = (ThreadPoolExecutor(config.batch_workers,
-                               thread_name_prefix="s18batch")
-            if config.batch_workers > 1 else None)
+    workers = config.batch_workers
+    if grouped and workers > 1:
+        print(f"S18_WORKERS={workers} overridden: under a process group one "
+              f"thread dispatches each batch in input order", file=sys.stderr)
+        workers = 1
+    pool = (ThreadPoolExecutor(workers, thread_name_prefix="s18batch")
+            if workers > 1 else None)
     try:
         batch: list = []
         for raw in stdin:
@@ -194,17 +214,82 @@ def serve(stdin: IO[str], stdout: IO[str],
     return engine
 
 
+def _in_group(config: EngineConfig) -> bool:
+    """Whether this process serves in a process group."""
+    if config.mesh_devices == 1 or config.backend == "numpy":
+        return False
+    from ..parallel.mesh import process_group
+
+    return process_group() is not None
+
+
 def run_protocol(stdin: IO[str], stdout: IO[str],
                  config: Optional[EngineConfig] = None) -> Dict[str, int]:
     return dict(serve(stdin, stdout, config).tiers)
 
 
+class _Clocked:
+    """stdin's lines, noting when the first line after "Done" is read
+    (the end of prep)."""
+
+    def __init__(self, stdin: IO[str]):
+        self._stdin = stdin
+        self._done = False
+        self.t_serving: Optional[float] = None
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> str:
+        line = next(self._stdin)
+        if self._done and self.t_serving is None:
+            self.t_serving = time.perf_counter()
+        self._done = self._done or line.strip() == "Done"
+        return line
+
+
+def _process_report(engine, t0: float, t_serving: Optional[float]) -> str:
+    """The `process {..}` line of a rank (module docstring)."""
+    import collections
+
+    from ..ops import ms_join, radix_join
+    from ..parallel import collectives
+    from ..parallel.mesh import process_group
+    from ..parallel.multihost import TRANSPORT
+
+    rank, world = process_group()
+    end = time.perf_counter()
+    t_serving = end if t_serving is None else t_serving
+    return "process " + json.dumps(dict(
+        rank=rank, world=world, transport=TRANSPORT,
+        collectives=dict(collectives.CALLS),
+        launches=dict(K1=ms_join.LAUNCHES,
+                      K4=radix_join.LAUNCHES["slot_fill"],
+                      K5=radix_join.LAUNCHES["probe_counts"]),
+        counts=dict(engine.counts), tiers=dict(engine.tiers),
+        join_strategies=dict(collections.Counter(
+            getattr(engine, "join_strategies", ()))),
+        prep_s=t_serving - t0, timed_s=end - t_serving))
+
+
 def main() -> None:
-    engine = serve(sys.stdin, sys.stdout)
-    print(f"engine {type(engine).__name__}:" + "".join(
-        f" {k}={v}" for k, v in engine.counts.items()), file=sys.stderr)
-    print("served by tier: " + " ".join(
-        f"{k}={v}" for k, v in engine.tiers.items()), file=sys.stderr)
+    t0 = time.perf_counter()
+    stdin = _Clocked(sys.stdin)
+    config = EngineConfig.from_env()
+    try:
+        engine = serve(stdin, sys.stdout, config)
+        print(f"engine {type(engine).__name__}:" + "".join(
+            f" {k}={v}" for k, v in engine.counts.items()), file=sys.stderr)
+        print("served by tier: " + " ".join(
+            f"{k}={v}" for k, v in engine.tiers.items()), file=sys.stderr)
+        if _in_group(config):
+            print(_process_report(engine, t0, stdin.t_serving),
+                  file=sys.stderr)
+    finally:
+        if _in_group(config):
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

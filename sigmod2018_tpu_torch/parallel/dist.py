@@ -4,11 +4,12 @@ Counterpart of `sigmod2018_tpu/parallel/dist.py`, function by function,
 with the same names and contracts, in plain PyTorch.  The JAX functions
 are `shard_map` bodies over one shard's view; here the SPMD steps are
 written in list-of-shards form: shard-local work is a loop over the
-shards (each tensor on its shard's device), and the collectives of
-parallel/collectives.py sit between the loops.  The `make_*` functions
-return the counterpart of the JAX package's jitted programs: a function
-of per-shard input lists (`row_sharding(mesh)` places a column) whose
-replicated outputs come back as shard 0's copy.
+shards this process owns (`Mesh.local`, each tensor on its shard's
+device), and the collectives of parallel/collectives.py sit between the
+loops.  The `make_*` functions return the counterpart of the JAX
+package's jitted programs: a function of per-shard input lists
+(`row_sharding(mesh)` places a column) whose replicated outputs come
+back as the first local shard's copy.
 
 - Every row goes to shard `key mod ndev`, the unsigned remainder of its
   u64 key (int64 bit patterns, ops/u64.py), so the destinations are
@@ -143,28 +144,30 @@ def _transport(via: str):
     return ring_all_to_all if via == "ring" else all_to_all
 
 
-def exchange_multi(send_keys: Sequence[torch.Tensor], send_pays,
-                   counts: Sequence[torch.Tensor], via: str = "a2a"):
+def exchange_multi(mesh: Mesh, send_keys: Sequence[torch.Tensor],
+                   send_pays, counts: Sequence[torch.Tensor],
+                   via: str = "a2a"):
     """Exchange every shard's per-destination buffers (`via`: "a2a", the
     all_to_all, or "ring", its ppermute hops) and compact what each
     shard received.  Per-shard lists: (keys [ndev * cap], payload
     tuples, live counts)."""
     a2a = _transport(via)
-    ndev = len(send_keys)
-    recv_keys = a2a(send_keys)
-    npay = len(send_pays[0]) if ndev else 0
-    recv_pays = [a2a([sp[i] for sp in send_pays]) for i in range(npay)]
-    recv_cnt = a2a([c[:, None] for c in counts])
+    nloc = len(send_keys)
+    recv_keys = a2a(mesh, send_keys)
+    npay = len(send_pays[0]) if nloc else 0
+    recv_pays = [a2a(mesh, [sp[i] for sp in send_pays])
+                 for i in range(npay)]
+    recv_cnt = a2a(mesh, [c[:, None] for c in counts])
     out = [_compact_received(recv_keys[s], [rp[s] for rp in recv_pays],
-                             recv_cnt[s][:, 0]) for s in range(ndev)]
+                             recv_cnt[s][:, 0]) for s in range(nloc)]
     return ([o[0] for o in out], [o[1] for o in out], [o[2] for o in out])
 
 
-def exchange(send_keys, send_pay, counts):
+def exchange(mesh: Mesh, send_keys, send_pay, counts):
     """exchange_multi of one payload column over the all_to_all:
     per-shard lists (keys, payload, live count)."""
-    keys, pays, n = exchange_multi(send_keys, [(p,) for p in send_pay],
-                                   counts)
+    keys, pays, n = exchange_multi(mesh, send_keys,
+                                   [(p,) for p in send_pay], counts)
     return keys, [p[0] for p in pays], n
 
 
@@ -194,7 +197,7 @@ def _on(n: Count, device) -> Count:
 
 def _global_live(L: int, s: int, n: Count, device) -> torch.Tensor:
     """Shard s's live mask of a row-sharded column with a global live
-    prefix of n rows (shard s owns rows [sL, (s+1)L))."""
+    prefix of n rows (shard s, a global index, owns rows [sL, (s+1)L))."""
     return (s * L + torch.arange(L, device=device)) < _on(n, device)
 
 
@@ -209,8 +212,11 @@ def _stable_argsort(x: torch.Tensor) -> torch.Tensor:
 
 
 def _shards(mesh: Mesh, xs: Sequence) -> int:
-    if len(xs) != mesh.size:
-        raise ValueError(f"{len(xs)} shards for a mesh of {mesh.size}")
+    """The mesh's size, after checking that xs holds one tensor per
+    shard this process owns."""
+    if len(xs) != len(mesh.local):
+        raise ValueError(f"{len(xs)} shards for the {len(mesh.local)} "
+                         f"local shards of a mesh of {mesh.size}")
     return mesh.size
 
 
@@ -235,12 +241,14 @@ def make_dist_join_checksum(mesh: Mesh, cap: int):
         ps = [partition_for_exchange(k, v, torch.ones(
             k.shape[0], dtype=torch.bool, device=k.device), ndev, cap)
               for k, v in zip(s_key, s_val)]
-        bk, bv, nb = exchange(*[[p[i] for p in pr] for i in range(3)])
-        pk, pv, npr = exchange(*[[p[i] for p in ps] for i in range(3)])
+        bk, bv, nb = exchange(mesh, *[[p[i] for p in pr]
+                                      for i in range(3)])
+        pk, pv, npr = exchange(mesh, *[[p[i] for p in ps]
+                                       for i in range(3)])
         res = [local_join_checksum(*a) for a in zip(bk, bv, nb, pk, pv, npr)]
         overflow = [(a[3] | b[3]).to(torch.int32) for a, b in zip(pr, ps)]
-        return tuple(psum([r[i] for r in res])[0] for i in range(3)) + (
-            psum(overflow)[0],)
+        return tuple(psum(mesh, [r[i] for r in res])[0]
+                     for i in range(3)) + (psum(mesh, overflow)[0],)
 
     return run
 
@@ -264,7 +272,7 @@ def make_dist_join_parts(mesh: Mesh, cap: int):
             res.append(local_join_checksum(
                 skr.reshape(-1), spr.reshape(-1), cr.sum(),
                 sks.reshape(-1), sps.reshape(-1), cs.sum()))
-        return tuple(psum([r[i] for r in res])[0] for i in range(3))
+        return tuple(psum(mesh, [r[i] for r in res])[0] for i in range(3))
 
     def comm(r_key, s_key):
         ndev = _shards(mesh, r_key)
@@ -274,11 +282,11 @@ def make_dist_join_parts(mesh: Mesh, cap: int):
                 k, k, torch.ones(k.shape[0], dtype=torch.bool,
                                  device=k.device), ndev, cap)
                 for k in keys]
-            sides.append(exchange(*[[p[i] for p in parts]
-                                    for i in range(3)]))
+            sides.append(exchange(mesh, *[[p[i] for p in parts]
+                                          for i in range(3)]))
         (bk, _, nb), (pk, _, npr) = sides
-        return psum([b[0] + p[0] + x + y
-                     for b, p, x, y in zip(bk, pk, nb, npr)])[0]
+        return psum(mesh, [b[0] + p[0] + x + y
+                           for b, p, x, y in zip(bk, pk, nb, npr)])[0]
 
     return comp, comm
 
@@ -297,17 +305,17 @@ def make_fused_shuffle_join(mesh: Mesh, cap: int, n_views: int):
         for keys, cols, n in ((bk, bcols, n_b), (pk, pcols, n_p)):
             parts = [partition_multi(
                 k, tuple(c), _global_live(k.shape[0], s, n, k.device),
-                ndev, cap) for s, (k, c) in enumerate(zip(keys, cols))]
-            sides.append(exchange_multi(*[[p[i] for p in parts]
-                                          for i in range(3)]))
+                ndev, cap) for s, k, c in zip(mesh.local, keys, cols)]
+            sides.append(exchange_multi(mesh, *[[p[i] for p in parts]
+                                                for i in range(3)]))
         (kb, vb, nb), (kp, vp, npr) = sides
         packed = []
-        for s in range(ndev):
+        for s in range(len(kb)):
             count, sums_b, sums_p = local_join_checksum_multi(
                 kb[s], _stack(vb[s], kb[s]), nb[s],
                 kp[s], _stack(vp[s], kp[s]), npr[s])
             packed.append(torch.cat([count.reshape(1), sums_b + sums_p]))
-        return psum(packed)[0]
+        return psum(mesh, packed)[0]
 
     return run
 
@@ -325,9 +333,9 @@ def make_shuffle_caps(mesh: Mesh):
     cap)."""
     def one(keys: Shards, n: Count) -> torch.Tensor:
         ndev = _shards(mesh, keys)
-        return pmax([send_hist_max(k, _global_live(k.shape[0], s, n,
-                                                   k.device), ndev)
-                     for s, k in enumerate(keys)])[0]
+        return pmax(mesh, [send_hist_max(
+            k, _global_live(k.shape[0], s, n, k.device), ndev)
+            for s, k in zip(mesh.local, keys)])[0]
 
     def run(bk: Shards, n_b: Count, pk: Shards, n_p: Count):
         return torch.stack([one(bk, n_b), one(pk, n_p)])
@@ -340,10 +348,11 @@ def make_exchange_counts(mesh: Mesh):
     any shard sends to any one shard (every row live)."""
     def run(keys: Shards) -> torch.Tensor:
         ndev = _shards(mesh, keys)
-        return pmax([send_hist_max(k, torch.ones(k.shape[0],
-                                                 dtype=torch.bool,
-                                                 device=k.device), ndev)
-                     for k in keys])[0]
+        return pmax(mesh, [send_hist_max(k, torch.ones(k.shape[0],
+                                                       dtype=torch.bool,
+                                                       device=k.device),
+                                         ndev)
+                           for k in keys])[0]
 
     return run
 
@@ -393,10 +402,10 @@ def make_dist_join_checksum_skew(mesh: Mesh, cap: int, hot_k: int = 16,
             idx = _top_k_indices(score, hot_k)
             return torch.where(score[idx] > 0, keys[idx], _PAD_KEY)
 
-        g_r = all_gather([side_candidates(k, lv)
-                          for k, lv in zip(r_key, live_r)])
-        g_s = all_gather([side_candidates(k, lv)
-                          for k, lv in zip(s_key, live_s)])
+        g_r = all_gather(mesh, [side_candidates(k, lv)
+                                for k, lv in zip(r_key, live_r)])
+        g_s = all_gather(mesh, [side_candidates(k, lv)
+                                for k, lv in zip(s_key, live_s)])
         all_cand = [sort_u64(torch.cat([a.reshape(-1), b.reshape(-1)]))[0]
                     for a, b in zip(g_r, g_s)]
 
@@ -407,7 +416,7 @@ def make_dist_join_checksum_skew(mesh: Mesh, cap: int, hot_k: int = 16,
                 local.append((ranks_u64(skl, cand, "right")
                               - ranks_u64(skl, cand, "left")).to(
                     torch.int32))
-            return psum(local)
+            return psum(mesh, local)
 
         gc_r = global_counts(r_key, live_r)
         gc_s = global_counts(s_key, live_s)
@@ -415,7 +424,7 @@ def make_dist_join_checksum_skew(mesh: Mesh, cap: int, hot_k: int = 16,
         share_s = max(1, s_key[0].shape[0] // max(1, hot_threshold))
 
         hot_r, hot_s, hot_over, hk, hv = [], [], [], [], []
-        for s in range(ndev):
+        for s in range(len(r_key)):
             cand = all_cand[s]
             dup = torch.cat([torch.zeros(1, dtype=torch.bool,
                                          device=cand.device),
@@ -440,11 +449,11 @@ def make_dist_join_checksum_skew(mesh: Mesh, cap: int, hot_k: int = 16,
             sel = hot_r[s][hp]
             hk.append(torch.where(sel, r_key[s][hp], _PAD_KEY))
             hv.append(torch.where(sel, r_val[s][hp], 0))
-        gk_all, gv_all = all_gather(hk), all_gather(hv)
+        gk_all, gv_all = all_gather(mesh, hk), all_gather(mesh, hv)
 
         # --- 3. hot probe rows join the gathered rows in place ---------
         t_h = []
-        for s in range(ndev):
+        for s in range(len(r_key)):
             gk, gv = gk_all[s].reshape(-1), gv_all[s].reshape(-1)
             n_hot_build = (gk != _PAD_KEY).sum()
             order = _stable_argsort(gk == _PAD_KEY)
@@ -458,13 +467,16 @@ def make_dist_join_checksum_skew(mesh: Mesh, cap: int, hot_k: int = 16,
               for k, v, lv, h in zip(r_key, r_val, live_r, hot_r)]
         ps = [partition_for_exchange(k, v, lv & ~h, ndev, cap)
               for k, v, lv, h in zip(s_key, s_val, live_s, hot_s)]
-        bk, bv, nb = exchange(*[[p[i] for p in pr] for i in range(3)])
-        pk, pv, npr = exchange(*[[p[i] for p in ps] for i in range(3)])
+        bk, bv, nb = exchange(mesh, *[[p[i] for p in pr]
+                                      for i in range(3)])
+        pk, pv, npr = exchange(mesh, *[[p[i] for p in ps]
+                                       for i in range(3)])
         t_c = [local_join_checksum(*a) for a in zip(bk, bv, nb, pk, pv, npr)]
         overflow = [(o | a[3] | b[3]).to(torch.int32)
                     for o, a, b in zip(hot_over, pr, ps)]
-        return tuple(psum([h[i] + c[i] for h, c in zip(t_h, t_c)])[0]
-                     for i in range(3)) + (psum(overflow)[0],)
+        return tuple(psum(mesh, [h[i] + c[i]
+                                 for h, c in zip(t_h, t_c)])[0]
+                     for i in range(3)) + (psum(mesh, overflow)[0],)
 
     return run
 
@@ -473,7 +485,7 @@ def make_dist_checksum(mesh: Mesh):
     """Wrap-around u64 SUM of a row-sharded column."""
     def run(col: Shards) -> torch.Tensor:
         _shards(mesh, col)
-        return psum([c.sum() for c in col])[0]
+        return psum(mesh, [c.sum() for c in col])[0]
 
     return run
 

@@ -60,6 +60,19 @@ query needing a cartesian product.  The text-order net runs on the mesh.
 modeled bytes between shards (`note_comm`) the first time a plan runs:
 the JAX package appends them when it traces a program, once per
 (skeleton, join order, classes, columns, caps).
+
+Under a process group (parallel/multihost.py) every rank runs this
+engine on the same protocol and owns the shards `Mesh.local` lists;
+each shard loop runs over those, and the collectives cross processes.
+The ranks must issue the same collectives in the same order, so every
+branch the host takes reads a replicated value (a psum, pmax or
+all_gather result, or the static shapes and catalog stats every rank
+shares), and the learned values agree: rank 0's learned file is
+broadcast when the engine starts, every rank learns the same replicated
+maxima, and only rank 0 writes the file.  The sharded columns come from
+the host, each rank copying only its own shards' blocks to its devices;
+a whole column goes to the first device only when the factorized tier
+or the operator engine asks for it.
 """
 
 from __future__ import annotations
@@ -85,7 +98,7 @@ from .collectives import all_gather, pmax, psum
 from .dist import (_PAD_KEY, _stable_argsort, _stack, exchange_multi,
                    local_join_checksum_multi, partition_multi,
                    send_hist_max)
-from .dist_engine import mesh_column, mesh_for
+from .dist_engine import mesh_column, mesh_for, padded_column
 from .mesh import Mesh, split_rows
 
 
@@ -158,7 +171,7 @@ class DistCompiledTorchEngine(CompiledTorchEngine):
                  mesh: Optional[Mesh] = None):
         self.mesh = mesh_for(config, mesh)  # the learned file's name
         super().__init__(catalog, config)
-        self.device = self.mesh.flat[0]
+        self.device = self.mesh.local_devices[0]
         self._sharded: Dict[Tuple[int, int], tuple] = {}
         self._recorded: set = set()
         self._record_lock = threading.Lock()
@@ -173,28 +186,57 @@ class DistCompiledTorchEngine(CompiledTorchEngine):
             return None
         return fp.replace(".json", f"-mesh{self.mesh.size}.json")
 
+    def _learned_cache(self) -> Dict[str, Tuple[int, ...]]:
+        """The persisted values; under a process group rank 0's, sent to
+        every rank, so that every rank sizes every query alike."""
+        if self.mesh.world == 1:
+            return super()._learned_cache()
+        import torch.distributed as dist
+
+        box = [super()._learned_cache() if self.mesh.rank == 0 else None]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def _persist_learned(self) -> None:
+        """Rank 0 writes the learned file; the others hold the same
+        values."""
+        if self.mesh.rank == 0:
+            super()._persist_learned()
+
     # ---- storage ---------------------------------------------------------
 
     def device_column(self, rid: int, cid: int) -> Tuple[torch.Tensor, int]:
         """The whole base column on the first device, padded to split
-        into equal shards (its blocks are the shards there)."""
+        into equal shards (in one process its blocks are the shards)."""
         return self._once(self._columns, (rid, cid),
                           lambda: mesh_column(self, rid, cid))
 
     def sharded_column(self, rid: int, cid: int):
-        """(per-shard blocks of device_column, live rows): shard s owns
-        rows [sL, (s+1)L)."""
+        """(the blocks of this process's shards of the padded column, live
+        rows): shard s owns rows [sL, (s+1)L).  In one process they are
+        views of device_column; under a process group they are copied
+        from the host, block by block."""
         def build():
-            col, n = self.device_column(rid, cid)
+            if self.mesh.world == 1:
+                col, n = self.device_column(rid, cid)
+            else:
+                col, n = padded_column(self.catalog, rid, cid,
+                                       self.mesh.size)
             return split_rows(col, self.mesh), n
 
         return self._once(self._sharded, (rid, cid), build)
 
     def prefetch(self) -> None:
-        super().prefetch()
+        """The sharded columns; in one process after the base prefetch
+        (whole columns, whose blocks the shards are, and the warm
+        replay), under a group before the warm replay alone."""
+        if self.mesh.world == 1:
+            super().prefetch()
         for rid, rel in enumerate(self.catalog.relations):
             for cid in range(rel.num_columns):
                 self.sharded_column(rid, cid)
+        if self.mesh.world > 1 and self.config.warm_replay:
+            self._replay_learned()
 
     # ---- learned classes and exchange caps -------------------------------
 
@@ -348,7 +390,10 @@ class DistCompiledTorchEngine(CompiledTorchEngine):
         Returns [global total, per-shard maximum] of the next
         intermediate join when the classes run out before the end, else
         the packed vector of DistSpecResult (on the first device)."""
-        ndev = self.mesh.size
+        mesh = self.mesh
+        ndev = mesh.size
+        local = mesh.local
+        nloc = len(local)
         dev0 = self.device
         ns = tuple(cols[rc][1] for rc in cols_used)
         record = self._first_run((_skeleton(query), tuple(joins), classes,
@@ -463,11 +508,11 @@ class DistCompiledTorchEngine(CompiledTorchEngine):
             """The shards of a base column and each shard's live rows."""
             shards, n = cols[(query.relations[b], c)]
             L = shards[0].shape[0]
-            return shards, [min(max(n - s * L, 0), L) for s in range(ndev)]
+            return shards, [min(max(n - s * L, 0), L) for s in local]
 
         def arange_live(width: int, counts):
             return [torch.arange(width, device=d) < n
-                    for d, n in zip(self.mesh.flat, counts)]
+                    for d, n in zip(self.mesh.local_devices, counts)]
 
         # component: (bindings, {(b, c): per-shard values}, per-shard counts)
         components: List[tuple] = []
@@ -533,17 +578,18 @@ class DistCompiledTorchEngine(CompiledTorchEngine):
                 pays = [comp[1][rc] for rc in payload_rcs]
             live = arange_live(keys[0].shape[0], live_n)
             return keys, live, [tuple(p[s] for p in pays)
-                                for s in range(ndev)]
+                                for s in range(nloc)]
 
         def gather_rows(keys, live, pays):
             """all_gather of every shard's (keys, liveness, payloads),
             the live rows stably compacted to a prefix per shard: the
             liveness rides along, so a live 2^64-1 key stays live."""
-            gk, gl = all_gather(keys), all_gather(live)
+            gk, gl = all_gather(mesh, keys), all_gather(mesh, live)
             npay = len(pays[0])
-            gp = [all_gather([p[i] for p in pays]) for i in range(npay)]
+            gp = [all_gather(mesh, [p[i] for p in pays])
+                  for i in range(npay)]
             out = []
-            for s in range(ndev):
+            for s in range(nloc):
                 k, lv = gk[s].reshape(-1), gl[s].reshape(-1)
                 order = _stable_argsort(~lv)
                 out.append((torch.where(lv[order], k[order], _PAD_KEY),
@@ -554,13 +600,13 @@ class DistCompiledTorchEngine(CompiledTorchEngine):
         def shuffle(keys, live, pays, cap: int):
             parts = [partition_multi(k, p, lv, ndev, cap)
                      for k, lv, p in zip(keys, live, pays)]
-            return exchange_multi([p[0] for p in parts],
+            return exchange_multi(mesh, [p[0] for p in parts],
                                   [p[1] for p in parts],
                                   [p[2] for p in parts], via=cfg.exchange)
 
         def send_max(keys, live) -> torch.Tensor:
-            return pmax([send_hist_max(k, lv, ndev)
-                         for k, lv in zip(keys, live)])[0]
+            return pmax(mesh, [send_hist_max(k, lv, ndev)
+                               for k, lv in zip(keys, live)])[0]
 
         # ---- joins ---------------------------------------------------
         class_i = 0
@@ -655,8 +701,8 @@ class DistCompiledTorchEngine(CompiledTorchEngine):
                     hl.append(sel)
                     hpay.append(tuple(torch.where(sel, x[sel_ord], 0)
                                       for x in p))
-                gk, gl = all_gather(hk), all_gather(hl)
-                gpay = [all_gather([hp[i] for hp in hpay])
+                gk, gl = all_gather(mesh, hk), all_gather(mesh, hl)
+                gpay = [all_gather(mesh, [hp[i] for hp in hpay])
                         for i in range(len(hpay[0]))]
                 # The cold rows take the shuffle (the learned caps and the
                 # send maxima are theirs).
@@ -679,7 +725,7 @@ class DistCompiledTorchEngine(CompiledTorchEngine):
                             pays, live.sum())
 
                 rkb, rpb, nb, rkp, rpp, npr = [], [], [], [], [], []
-                for s in range(ndev):
+                for s in range(nloc):
                     lcb = (torch.arange(ck_b[s].shape[0],
                                         device=ck_b[s].device) < nb_c[s])
                     lcp = (torch.arange(ck_p[s].shape[0],
@@ -717,7 +763,7 @@ class DistCompiledTorchEngine(CompiledTorchEngine):
                 packed = []
                 views_b = [v for v in query.views if v[0] in bset]
                 views_p = [v for v in query.views if v[0] not in bset]
-                for s in range(ndev):
+                for s in range(nloc):
                     bcols = [rpb[s][pay_b.index(v)] for v in views_b]
                     pcols = [rpp[s][pay_p.index(v)] for v in views_p]
                     count, sums_b, sums_p = local_join_checksum_multi(
@@ -727,15 +773,15 @@ class DistCompiledTorchEngine(CompiledTorchEngine):
                     packed.append(torch.stack(
                         [count] + [next(it_b) if v[0] in bset
                                    else next(it_p) for v in query.views]))
-                return done(psum(packed)[0])
+                return done(psum(mesh, packed)[0])
 
             # ---- intermediate: shard-local sort-join and emit --------
             builds = [ops.join_build(k, n) for k, n in zip(rkb, nb)]
             counts = [ops.join_probe_count_auto(sk, n, k, m)
                       for (sk, _), n, k, m in zip(builds, nb, rkp, npr)]
             total_loc = [c[3] for c in counts]
-            g_total = psum(total_loc)[0]
-            l_max = pmax(total_loc)[0]
+            g_total = psum(mesh, total_loc)[0]
+            l_max = pmax(mesh, total_loc)[0]
             if class_i >= len(classes):
                 # segment boundary: the host reads (global, per-shard max)
                 return torch.stack([g_total, l_max])
@@ -745,7 +791,7 @@ class DistCompiledTorchEngine(CompiledTorchEngine):
             class_i += 1
             vals: Dict[tuple, list] = {rc: [] for rc in pay_b + pay_p}
             cnt_new = []
-            for s in range(ndev):
+            for s in range(nloc):
                 perm = builds[s][1]
                 lo, _, ccum, tot = counts[s]
                 bpos, ppos = ops.join_emit(perm, lo, ccum, tot, out_size=Pc)
@@ -762,10 +808,12 @@ class DistCompiledTorchEngine(CompiledTorchEngine):
         comp = components[0]
         width = next(iter(comp[1].values()))[0].shape[0] if comp[1] else 0
         live = arange_live(width, comp[2])
-        parts = [psum([torch.as_tensor(n, device=d).to(torch.int64)
-                       for n, d in zip(comp[2], self.mesh.flat)])[0]]
+        parts = [psum(mesh, [torch.as_tensor(n, device=d).to(torch.int64)
+                             for n, d in zip(comp[2],
+                                             mesh.local_devices)])[0]]
         for b, c in query.views:
-            parts.append(psum([torch.where(lv, v, 0).sum() for lv, v in
-                               zip(live, comp[1][(b, c)])])[0])
+            parts.append(psum(mesh, [torch.where(lv, v, 0).sum()
+                                     for lv, v in
+                                     zip(live, comp[1][(b, c)])])[0])
         return done(torch.stack(parts))
 

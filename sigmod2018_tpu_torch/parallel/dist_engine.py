@@ -13,6 +13,11 @@ final join is the shuffle: both sides are split over the mesh,
 shard.  The prep-time join artifacts do not apply
 (`prep_join_artifacts = False`): the shuffle re-partitions the build
 side.
+
+Under a process group every rank runs the operators on whole columns on
+its first device (the same work on every rank, so every rank reads the
+same totals), splits each fused join's sides into the blocks of the
+shards it owns, and the shuffle's collectives cross processes.
 """
 
 from __future__ import annotations
@@ -30,16 +35,21 @@ from .dist import make_fused_shuffle_join, make_shuffle_caps
 from .mesh import Mesh, make_mesh, padded_rows
 
 
+def padded_column(catalog: Catalog, rid: int, cid: int,
+                  ndev: int) -> Tuple[np.ndarray, int]:
+    """A base column on the host, padded with 0 so that it splits into
+    ndev equal shards (mesh.padded_rows), and its live rows."""
+    col = np.array(catalog.column(rid, cid), dtype=np.uint64)
+    host = np.zeros(padded_rows(col.shape[0], ndev), dtype=np.uint64)
+    host[:col.shape[0]] = col
+    return host, col.shape[0]
+
+
 def mesh_column(engine: TorchEngine, rid: int,
                 cid: int) -> Tuple[torch.Tensor, int]:
-    """A base column on the engine's first device, padded with 0 so that
-    it splits into equal shards (mesh.padded_rows), and its live rows."""
-    col = np.array(engine.catalog.column(rid, cid), dtype=np.uint64)
-    host = np.zeros(padded_rows(col.shape[0], engine.mesh.size),
-                    dtype=np.uint64)
-    host[:col.shape[0]] = col
-    return (torch.from_numpy(host.view(np.int64)).to(engine.device),
-            col.shape[0])
+    """padded_column whole on the engine's first device."""
+    host, n = padded_column(engine.catalog, rid, cid, engine.mesh.size)
+    return torch.from_numpy(host.view(np.int64)).to(engine.device), n
 
 
 def mesh_for(config: EngineConfig, mesh: Optional[Mesh]) -> Mesh:
@@ -60,7 +70,7 @@ class DistTorchEngine(TorchEngine):
                  mesh: Optional[Mesh] = None):
         super().__init__(catalog, config)
         self.mesh = mesh_for(config, mesh)
-        self.device = self.mesh.flat[0]
+        self.device = self.mesh.local_devices[0]
         # the host read of each shuffle join's send maxima
         self.counts["cap_reads"] = 0
 
@@ -76,12 +86,14 @@ class DistTorchEngine(TorchEngine):
         Vb, Vp = vals_b.shape[0], vals_p.shape[0]
 
         def split(t: torch.Tensor):
-            """t's last axis in equal blocks over the mesh (zero-padded)."""
+            """t's last axis in equal blocks over the mesh (zero-padded),
+            the blocks of this process's shards."""
             P = t.shape[-1]
             L = -(-P // ndev)
             t = torch.nn.functional.pad(t, (0, L * ndev - P))
             return [t[..., s * L:(s + 1) * L].to(d)
-                    for s, d in enumerate(self.mesh.flat)]
+                    for s, d in zip(self.mesh.local,
+                                    self.mesh.local_devices)]
 
         kb, kp = split(keys_b), split(keys_p)
         hints = make_shuffle_caps(self.mesh)(kb, n_b, kp, n_p).tolist()

@@ -2,8 +2,9 @@
 kernel table against counts made by hand at the shapes of its cases, the
 case builders against what their cases claim to exercise, the workload
 parameters against tools/regen_workloads.sh, the tier check, the
-checks of the compiled engine's runs, and the sort-form message against
-the port's."""
+checks of the compiled engine's runs, the sort-form message against
+the port's, and phase 10's driver (two ranks of the protocol driver,
+the collective costs) run on the CPU at a small size."""
 
 import importlib.util
 from pathlib import Path
@@ -268,3 +269,96 @@ def test_phase_9_fuzzes_every_member_and_the_mesh():
                                  ("mesh 4", "auto", 4, 60)]
     assert cs.FUZZ_KERNELS == {"ms": ("K1",), "radix": ("K4", "K5"),
                                "qd": ("K4", "K5")}
+
+
+def test_phase_10_runs_two_ranks_on_the_cpu(tmp_path, monkeypatch):
+    """Phase 10's driver on the CPU at a small size: two ranks of the
+    protocol driver on 4 shards, twice from one emptied prep cache, on
+    relations of workloads/zipf's profile at 1,000 rows with its
+    queries; every rank's lines equal the NumPy twins', the second run
+    is sized from what rank 0 learned, and the records carry both
+    ranks' reports."""
+    from sigmod2018_tpu_torch.engine.factorized import (
+        execute_query_factorized_np)
+    from sigmod2018_tpu_torch.engine.oracle import execute_query_numpy
+    from sigmod2018_tpu_torch.frontend.parser import parse_query
+    from sigmod2018_tpu_torch.storage.catalog import Catalog
+    from sigmod2018_tpu_torch.tools.workload import write_relations
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # per rank
+    rels = write_relations(tmp_path / "rels", profile="zipf", rows=1000,
+                           relations=6, keyspace=5000, seed=4)
+    work = (ROOT / "workloads" / "zipf" / "zipf.work").read_text(
+        ).splitlines()
+    catalog = Catalog.from_files([str(r) for r in rels])
+    # the factorized twin answers the forest queries without
+    # materializing their blow-ups
+    want = [execute_query_factorized_np(parse_query(q), catalog)
+            or execute_query_numpy(parse_query(q), catalog)
+            for q in work if q != "F"]
+    paths = [("2 ranks mesh4 a2a", "mesh4 a2a compiled", {}, 2, ("tiny",))]
+    records = cs.multiprocess_runs(
+        "cpu", {"tiny": ([str(r) for r in rels], work, want)}, paths=paths,
+        prep_cache=tmp_path / "prep", timeout=90, k1_workloads=(),
+        strategies=("broadcast",))
+    assert [(r["name"], r["run"]) for r in records] == [("tiny", 1),
+                                                        ("tiny", 2)]
+    for rec in records:
+        assert [rep["rank"] for rep in rec["ranks"]] == [0, 1]
+        assert all(rep["world"] == 2 and rep["lines_equal"] == len(want)
+                   for rep in rec["ranks"])
+    assert records[1]["ranks"][0]["counts"]["learned"] > 0
+    assert [p.name for p in (tmp_path / "prep").glob("learned-*")] != []
+
+
+def test_phase_10_fails_on_a_wrong_line(tmp_path):
+    """A rank whose line differs from the .result fails the phase."""
+    from sigmod2018_tpu_torch.tools.workload import write_relations
+
+    rels = write_relations(tmp_path / "rels", profile="uniform", rows=300,
+                           relations=2, keyspace=50, seed=1)
+    paths = [("2 ranks", "mesh4 a2a compiled", {}, 1, ("tiny",))]
+    with pytest.raises(AssertionError, match="rank 0: 0/1 lines"):
+        cs.multiprocess_runs(
+            "cpu", {"tiny": ([str(r) for r in rels],
+                             ["0 1|0.0=1.0|0.1", "F"], ["1 2"])},
+            paths=paths, prep_cache=tmp_path / "prep", timeout=90,
+            k1_workloads=(), strategies=())
+
+
+def test_phase_10_paths():
+    """The a2a runs come first (their first run teaches the second, from
+    the emptied prep cache), every workload twice, on phase 8's
+    switches; the zipf runs are phase 8's strategy runs."""
+    label, mesh_label, extra, runs, names = cs.MP_PATHS[0]
+    assert (extra, runs, set(names)) == ({}, 2, set(cs.WORKLOADS))
+    mesh = {p[0]: p for p in cs.MESH_PATHS}
+    for label, mesh_label, extra, runs, names in cs.MP_PATHS:
+        assert mesh[mesh_label][3] == runs and mesh[mesh_label][4][-1] in (
+            names)
+    assert cs.MP_WORLD == 2 and cs.MP_PREP_CACHE.parent == cs.SMOKE_DIR
+    assert set(cs.MP_STRATEGIES) == {"broadcast", "shuffle", "skew"}
+
+
+def test_phase_10_collective_costs_on_the_cpu(monkeypatch):
+    """tools.collective_cost as one process and as two ranks: every case
+    timed in each, the ranks over the gloo transport, the bytes a rank
+    sends half of what the one process sends (it owns half the shards),
+    and the ranks' largest all_to_all timed in its three parts."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    one, ranks = cs.collective_costs("cpu", timeout=60)
+    assert (one["world"], one["shards"]) == (1, 4)
+    assert [(r["world"], r["rank"]) for r in ranks] == [(2, 0), (2, 1)]
+    assert ranks[0]["transport"].startswith("gloo")
+    for r in ranks:
+        assert r["cases"].keys() == one["cases"].keys()
+        for case, c in r["cases"].items():
+            assert c["ms"] > 0
+            assert 2 * c["bytes"] == one["cases"][case]["bytes"]
+    assert one["cases"]["all_to_all [4, 131,072]"]["bytes"] == 4 * 8 * 4 * (
+        1 << 17)
+    # the largest all_to_all in its parts, under the group only
+    assert one["a2a_parts"] is None
+    for r in ranks:
+        assert r["a2a_parts"].keys() == {"stage", "exchange", "unstage"}
+        assert all(ms > 0 for ms in r["a2a_parts"].values())

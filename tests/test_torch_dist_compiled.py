@@ -15,7 +15,8 @@ tests' checks of the compiled HLO.
 Beside those: the reference's learned-class fault on a blow-up text and
 the port's guard against it, the protocol driver with S18_MESH=4 line
 for line against the JAX package's, the engine the driver picks, the
-mesh switches, the topology helpers and multi-host bring-up."""
+mesh switches, the topology helpers and the env contract of multi-process
+bring-up."""
 
 import contextlib
 import io
@@ -287,16 +288,40 @@ def test_hier_mesh_topology():
 
 
 def test_init_distributed(monkeypatch):
-    """No S18_COORD_ADDR: the single-process no-op of the JAX package.
-    With it, multi-host serving is not ported: the call raises rather
-    than ignore the variable."""
+    """The JAX package's env contract.  No S18_COORD_ADDR: the
+    single-process no-op of both packages.  With it, S18_NUM_PROCS and
+    S18_PROC_ID must be there and in range, and S18_MESH a multiple of
+    the ranks; each error names its variable, in init_distributed and
+    in EngineConfig.from_env, before any group is joined.  The group
+    itself runs in tests/test_torch_multiprocess.py."""
     from sigmod2018_tpu.parallel import init_distributed as jinit
 
-    monkeypatch.delenv("S18_COORD_ADDR", raising=False)
+    for k in ("S18_COORD_ADDR", "S18_NUM_PROCS", "S18_PROC_ID", "S18_MESH"):
+        monkeypatch.delenv(k, raising=False)
     assert tpar.init_distributed() is False is jinit()
     monkeypatch.setenv("S18_COORD_ADDR", "localhost:1234")
-    with pytest.raises(RuntimeError, match="not ported"):
-        tpar.init_distributed()
+    for procs, rank, name in ((None, "0", "S18_NUM_PROCS"),
+                              ("2", None, "S18_PROC_ID"),
+                              ("two", "0", "S18_NUM_PROCS"),
+                              ("2", "2", "S18_PROC_ID"),
+                              ("2", "-1", "S18_PROC_ID"),
+                              ("0", "0", "S18_NUM_PROCS")):
+        for k, v in (("S18_NUM_PROCS", procs), ("S18_PROC_ID", rank)):
+            if v is None:
+                monkeypatch.delenv(k, raising=False)
+            else:
+                monkeypatch.setenv(k, v)
+        with pytest.raises(ValueError, match=name):
+            tpar.init_distributed()
+        with pytest.raises(ValueError, match=name):
+            EngineConfig.from_env()
+    monkeypatch.setenv("S18_NUM_PROCS", "2")
+    monkeypatch.setenv("S18_PROC_ID", "1")
+    monkeypatch.setenv("S18_MESH", "6")
+    assert EngineConfig.from_env() == EngineConfig(mesh_devices=6)
+    monkeypatch.setenv("S18_MESH", "3")
+    with pytest.raises(ValueError, match="S18_MESH=3.*S18_NUM_PROCS=2"):
+        EngineConfig.from_env()
 
 
 @pytest.fixture
@@ -305,9 +330,9 @@ def a2a_widths(monkeypatch):
     widths = []
     real = tdist.all_to_all
 
-    def a2a(xs):
+    def a2a(mesh, xs):
         widths.append(xs[0].shape[1] if xs[0].dim() == 2 else None)
-        return real(xs)
+        return real(mesh, xs)
 
     monkeypatch.setattr(tdist, "all_to_all", a2a)
     return widths
@@ -406,9 +431,9 @@ def test_skew_split_gathers_hot_rows(meshes, monkeypatch):
     gathered = []
     real = dist_compiled.all_gather
 
-    def gather(xs):
+    def gather(mesh, xs):
         gathered.append(tuple(xs[0].shape))
-        return real(xs)
+        return real(mesh, xs)
 
     monkeypatch.setattr(dist_compiled, "all_gather", gather)
     text = "0 1|0.0=1.0|0.1 1.1"

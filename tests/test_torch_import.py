@@ -61,7 +61,8 @@ def test_blowup_path_modules_import_with_jax_blocked(module):
                                     "parallel.collectives", "parallel.dist",
                                     "parallel.dist_engine",
                                     "parallel.dist_compiled",
-                                    "parallel.multihost"])
+                                    "parallel.multihost",
+                                    "parallel.launch"])
 def test_mesh_modules_import_with_jax_blocked(module):
     """The mesh path's modules, each on its own in a fresh process, with
     neither jax nor the JAX package importable."""
@@ -71,6 +72,7 @@ def test_mesh_modules_import_with_jax_blocked(module):
 @pytest.mark.parametrize("module", ["tools.fuzz", "tools.soak", "tools.smoke",
                                     "tools.microbench", "tools.roofline",
                                     "tools.bench_probe", "tools.query2sql",
+                                    "tools.collective_cost",
                                     "utils.timing"])
 def test_tool_modules_import_with_jax_blocked(module):
     """The tools and their shared timer, each on its own in a fresh

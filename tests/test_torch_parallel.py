@@ -304,14 +304,15 @@ def test_collectives_fresh_outputs_and_counts():
     the all_to_all's result in ndev - 1 ppermute hops, and CALLS counts
     each kind."""
     n = 5
+    m = mesh.make_mesh(n, "cpu")
     xs = [torch.arange(n * 3).reshape(n, 3) + 100 * s for s in range(n)]
     before = [x.clone() for x in xs]
     collectives.reset_calls()
-    outs = {"a2a": collectives.all_to_all(xs),
-            "ring": collectives.ring_all_to_all(xs),
-            "gather": collectives.all_gather(xs),
-            "psum": collectives.psum(xs), "pmax": collectives.pmax(xs),
-            "perm": collectives.ppermute(xs, [(0, 1), (1, 0)])}
+    outs = {"a2a": collectives.all_to_all(m, xs),
+            "ring": collectives.ring_all_to_all(m, xs),
+            "gather": collectives.all_gather(m, xs),
+            "psum": collectives.psum(m, xs), "pmax": collectives.pmax(m, xs),
+            "perm": collectives.ppermute(m, xs, [(0, 1), (1, 0)])}
     assert collectives.CALLS == dict(all_to_all=1, all_gather=1, psum=1,
                                      pmax=1, ppermute=1 + (n - 1))
     for d in range(n):
@@ -329,7 +330,7 @@ def test_collectives_fresh_outputs_and_counts():
     assert all(torch.equal(a, b) for a, b in zip(xs, before))
     # psum wraps around mod 2^64 as u64 bit patterns
     big = [torch.tensor(-1), torch.tensor(2)]
-    assert collectives.psum(big)[0].item() == 1
+    assert collectives.psum(mesh.make_mesh(2, "cpu"), big)[0].item() == 1
 
 
 def test_mesh_placement_and_row_shards():
