@@ -67,13 +67,23 @@ Phases, each of which must pass:
       the files' values); the seconds of stats by NumPy, by the native
       loader and from a stats-cache hit;
    b. fresh processes under the contest harness: `tools/harness.py INIT
-      WORK RESULT -- python -m sigmod2018_tpu_torch` (1 s prep window),
-      per workload from an emptied prep cache with the defaults (async
-      prep, native stats), again warm, and warm with S18_ASYNC_PREP=0;
-      each must exit 0 (every line exact), and its timed ms prints
-      beside phase 5's in-process timed phase; one more fresh process
-      times `import torch`, CUDA's start with a first launch, and the
-      import of the port's serving modules;
+      WORK RESULT -- python -m sigmod2018_tpu_torch` (1 s prep window):
+      big and bigdom from an emptied prep cache with the defaults (async
+      prep, native stats, the warm-up tier), again warm, and warm with
+      S18_ASYNC_PREP=0; zipfbig, scaled and zipf warm (from a copy of
+      phase 5's prep cache) with the defaults and with
+      S18_WARMUP_ORACLE=0.  Each must exit 0 (every line exact) and end
+      its serving normally; its timed ms prints beside phase 5's
+      in-process timed phase, with the engine's counts, the tier counts
+      (`warmup_host`: the warm-up tier's answers) and the process's start
+      timeline (the `start {..}` line of io/repl.py).  The tier must
+      answer nothing on big, bigdom and zipfbig (every query references
+      more than 2^21 base rows) and under S18_WARMUP_ORACLE=0.  One more
+      fresh process times `import torch`, CUDA's start with a first
+      launch, and the import of the port's serving modules; another
+      times `import torch` in a thread as the driver's card thread does
+      it; and the five largest cumulative imports of `python -X
+      importtime -c "import torch"` print;
    c. one bigdom query with an intermediate join under S18_TRACE=json
       and S18_EXPLAIN=1 (the operator engine, one batch thread): its
       line equal to the .result's, every trace record parsed, device_ms
@@ -140,6 +150,10 @@ Any failure exits non-zero before either is printed, as does a machine
 without a CUDA device.
 
 Run from the repository root:  python3 chip_smoke.py
+
+`python -m sigmod2018_tpu_torch.tools.cold_start` compares phase 7b's
+fresh processes with variants of the driver and with another checkout,
+in turns.
 """
 
 from __future__ import annotations
@@ -845,8 +859,19 @@ def phase_prep_stats(card: str) -> dict:
     return seconds
 
 
-HARNESS_RUNS = (("cold", {}), ("warm", {}),
-                ("warm, blocking prep", {"S18_ASYNC_PREP": "0"}))
+# Phase 7b's harness runs, (label, S18_* switches), per workload.  big and
+# bigdom start from an emptied prep cache; the others start warm from
+# phase 5's (the same relation files and sizing config), and run with the
+# warm-up tier and without it.
+HARNESS_RUNS = {
+    name: ((("cold", {}), ("warm", {}),
+            ("warm, blocking prep", {"S18_ASYNC_PREP": "0"}))
+           if name in FORCED_WORKLOADS else
+           (("warm", {}), ("warm, no tier", {"S18_WARMUP_ORACLE": "0"})))
+    for name in WORKLOADS}
+# workloads of which every query references more than 2^21 base rows
+# (S18_WARMUP_ORACLE's default): the warm-up tier answers none of them
+NO_TIER_WORKLOADS = ("big", "bigdom", "zipfbig")
 
 # What every fresh `python -m sigmod2018_tpu_torch` pays before its first
 # query, step by step (seconds on the process's own clock).
@@ -865,9 +890,61 @@ print(json.dumps({"import torch": t1 - t0,
 """
 
 
+# `import torch` in a thread while the main thread waits, as the driver's
+# card thread does it (on one malloc arena, io/repl.py::one_malloc_arena,
+# which `python -m sigmod2018_tpu_torch` calls); seconds on the process's
+# clock
+THREAD_IMPORT = """
+import json, threading, time
+from sigmod2018_tpu_torch.io.repl import one_malloc_arena
+if not one_malloc_arena():
+    raise SystemExit("no mallopt")
+t0 = time.perf_counter()
+took = []
+
+def run():
+    import torch
+    took.append(time.perf_counter() - t0)
+
+thread = threading.Thread(target=run)
+thread.start()
+thread.join()
+print(json.dumps(took[0]))
+"""
+
+
+def thread_import_seconds() -> float:
+    """THREAD_IMPORT in a fresh process: seconds of its `import torch`."""
+    proc = subprocess.run(
+        [sys.executable, "-c", THREAD_IMPORT],
+        env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True,
+        text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"import in a thread: {proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.splitlines()[-1])
+
+
+def import_time_top(n: int = 5) -> list:
+    """The n largest cumulative entries of `python -X importtime -c
+    "import torch"` in a fresh process: [(module, seconds)]."""
+    proc = subprocess.run([sys.executable, "-X", "importtime", "-c",
+                           "import torch"], capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"-X importtime: {proc.stderr[-4000:]}")
+    rows = []
+    for line in proc.stderr.splitlines():
+        parts = line.split("|")
+        if line.startswith("import time:") and parts[1].strip().isdigit():
+            rows.append((parts[2].strip(), int(parts[1]) / 1e6))
+    return sorted(rows, key=lambda r: -r[1])[:n]
+
+
 def fresh_process_steps(card: str) -> dict:
     """FRESH_PROCESS in a subprocess: {step: seconds}, with the whole
-    process's wall time (interpreter start and exit included)."""
+    process's wall time (interpreter start and exit included), then
+    THREAD_IMPORT's; then the largest cumulative imports of `import
+    torch`."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", FRESH_PROCESS],
                           env=dict(os.environ, PYTHONPATH=str(ROOT)),
@@ -877,53 +954,95 @@ def fresh_process_steps(card: str) -> dict:
         raise AssertionError(f"fresh process: {proc.stderr[-4000:]}")
     steps = json.loads(proc.stdout.splitlines()[-1])
     steps["whole process"] = wall
+    steps["import torch in the card's thread"] = thread_import_seconds()
+    top = import_time_top()
     print("fresh process: " + ", ".join(f"{k} {v:.3f} s"
                                         for k, v in steps.items())
-          + f" ({card})", flush=True)
+          + "; import torch's largest cumulative imports (-X importtime): "
+          + ", ".join(f"{m} {t:.3f} s" for m, t in top) + f" ({card})",
+          flush=True)
     return steps
 
 
-def phase_harness(card: str, phases: dict) -> dict:
-    """Fresh processes under the contest harness, per workload of
-    FORCED_WORKLOADS and run of HARNESS_RUNS: {(workload, run): timed ms}.
-    The first run starts from an emptied prep cache."""
+def harness_run(name: str, root: Path, cache: Path, extra: dict,
+                driver=("-m", "sigmod2018_tpu_torch")) -> dict:
+    """One fresh `python -m sigmod2018_tpu_torch` (or `python *driver`)
+    of the package under `root` on workload `name` under tools/harness.py
+    (1 s prep window), with prep cache `cache`: its timed ms, query count,
+    whole run's seconds, the engine's counts line, tier counts and start
+    timeline (None when it prints none).  Every line must be exact and
+    the process must end its serving normally (its tier line printed)."""
     import re
 
+    src = ROOT / "workloads" / name
+    init = SMOKE_DIR / name / f"{name}.init"  # bare names, beside them
+    init.write_text((src / f"{name}.init").read_text())
+    env = dict(os.environ, PYTHONPATH=str(root), S18_PREP_CACHE=str(cache),
+               **extra)
+    cmd = [sys.executable, str(ROOT / "tools" / "harness.py"), str(init),
+           str(src / f"{name}.work"), str(src / f"{name}.result"), "--",
+           sys.executable, *driver]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=300)
+    wall = time.perf_counter() - t0
+    hit = re.search(r"(\d+) queries, 0 mismatches, (\d+) ms", proc.stdout)
+    err = proc.stderr.splitlines()
+    tiers = next((ln for ln in err if ln.startswith("served by tier: ")),
+                 None)
+    engine = next((ln for ln in err if ln.startswith("engine ")), None)
+    if proc.returncode != 0 or hit is None or tiers is None or engine is None:
+        raise AssertionError(
+            f"harness on {name} ({extra}, {root}): rc {proc.returncode}\n"
+            f"{proc.stdout}\n{proc.stderr[-4000:]}")
+    start = next((json.loads(ln[len("start "):])
+                  for ln in err if ln.startswith("start {")), None)
+    return dict(ms=int(hit.group(2)), queries=int(hit.group(1)), wall=wall,
+                engine=engine, tiers={k: int(v) for k, v in (
+                    kv.split("=") for kv in tiers.split(": ")[1].split())},
+                start=start)
+
+
+def _start_text(start) -> str:
+    if start is None:
+        return "no start line"
+    return "start " + " ".join(
+        f"{k} {'-' if v is None else f'{v:.3f}'}" for k, v in start.items())
+
+
+def phase_harness(card: str, phases: dict) -> dict:
+    """Fresh processes under the contest harness, per workload and run of
+    HARNESS_RUNS: {(workload, run): timed ms}.  big and bigdom start from
+    an emptied prep cache, the others from a copy of phase 5's."""
     timed = {}
-    for name in FORCED_WORKLOADS:
-        src = ROOT / "workloads" / name
-        init = SMOKE_DIR / name / f"{name}.init"  # bare names, beside them
-        init.write_text((src / f"{name}.init").read_text())
+    for name, runs in HARNESS_RUNS.items():
         cache = SMOKE_DIR / f"harness-prep-{name}"
         shutil.rmtree(cache, ignore_errors=True)
-        cache.mkdir(parents=True)
-        for label, extra in HARNESS_RUNS:
-            env = dict(os.environ, PYTHONPATH=str(ROOT),
-                       S18_PREP_CACHE=str(cache), **extra)
-            cmd = [sys.executable, str(ROOT / "tools" / "harness.py"),
-                   str(init), str(src / f"{name}.work"),
-                   str(src / f"{name}.result"), "--", sys.executable, "-m",
-                   "sigmod2018_tpu_torch"]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, env=env, capture_output=True,
-                                  text=True, timeout=300)
-            wall = time.perf_counter() - t0
-            hit = re.search(r"(\d+) queries, 0 mismatches, (\d+) ms",
-                            proc.stdout)
-            if proc.returncode != 0 or hit is None:
+        if name in FORCED_WORKLOADS:
+            cache.mkdir(parents=True)
+        else:
+            shutil.copytree(PREP_CACHE, cache)
+        for label, extra in runs:
+            rec = harness_run(name, ROOT, cache, extra)
+            warm_host = rec["tiers"].get("warmup_host")
+            if warm_host is None:
+                raise AssertionError(f"harness on {name} ({label}): no "
+                                     f"warmup_host count")
+            if warm_host and (name in NO_TIER_WORKLOADS
+                              or extra.get("S18_WARMUP_ORACLE") == "0"):
                 raise AssertionError(
-                    f"harness on {name} ({label}): rc {proc.returncode}\n"
-                    f"{proc.stdout}\n{proc.stderr[-4000:]}")
-            timed[name, label] = int(hit.group(2))
-            engine = [ln for ln in proc.stderr.splitlines()
-                      if ln.startswith(("engine ", "served by tier"))]
+                    f"harness on {name} ({label}): the warm-up tier "
+                    f"answered {warm_host} queries")
+            timed[name, label] = rec["ms"]
             in_proc = [phases["compiled auto", name, run][1] * 1e3
                        for run in (1, 2)]
-            print(f"harness [{name} {label}] {hit.group(1)} queries exact; "
-                  f"timed phase {timed[name, label]} ms (in-process, phase "
-                  f"5: compiled run 1 {in_proc[0]:.1f} ms, run 2 "
-                  f"{in_proc[1]:.1f} ms); whole harness run {wall:.3f} s; "
-                  f"{'; '.join(engine)} ({card})", flush=True)
+            print(f"harness [{name} {label}] {rec['queries']} queries exact; "
+                  f"timed phase {rec['ms']} ms (in-process, phase 5: "
+                  f"compiled run 1 {in_proc[0]:.1f} ms, run 2 "
+                  f"{in_proc[1]:.1f} ms); whole harness run "
+                  f"{rec['wall']:.3f} s; {rec['engine']}; served by tier "
+                  f"{rec['tiers']}; {_start_text(rec['start'])} ({card})",
+                  flush=True)
     return timed
 
 

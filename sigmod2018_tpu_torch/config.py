@@ -8,12 +8,17 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional, Tuple, Union
+from typing import TYPE_CHECKING, Optional, Tuple, Union
 
-import torch
+if TYPE_CHECKING:
+    import torch
 
 BACKENDS = ("torch", "numpy")
 EXCHANGES = ("a2a", "ring")
+
+# Technical ceiling on any materialized intermediate, independent of the
+# configurable max_intermediate guard.
+HARD_INTERMEDIATE_CAP = 1 << 27
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,6 +115,12 @@ class EngineConfig:
     # other side's hot rows in place.  0 disables.
     skew_factor: int = 2
 
+    # Warm-up host tier (io/repl.py): until the card's thread has made the
+    # engine, a query whose bindings reference at most this many base rows
+    # in all answers on the host (engine/factorized.py's NumPy twin, else the
+    # oracle), with no torch.  0 disables.
+    warmup_oracle: int = 1 << 21
+
     def __post_init__(self):
         if self.backend not in BACKENDS:
             raise ValueError(f"S18_BACKEND={self.backend!r}: expected one "
@@ -119,12 +130,16 @@ class EngineConfig:
                              f"one of {EXCHANGES}")
         for name, value, least in (("S18_MESH", self.mesh_devices, 1),
                                    ("S18_BCAST", self.bcast_threshold, 0),
-                                   ("S18_SKEW", self.skew_factor, 0)):
+                                   ("S18_SKEW", self.skew_factor, 0),
+                                   ("S18_WARMUP_ORACLE", self.warmup_oracle,
+                                    0)):
             if value < least:
                 raise ValueError(f"{name}={value}: expected an integer "
                                  f">= {least}")
 
-    def device(self) -> torch.device:
+    def device(self) -> "torch.device":
+        import torch
+
         if self.platform == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -162,6 +177,7 @@ class EngineConfig:
             exchange=_flag("S18_EXCHANGE", "a2a"),
             bcast_threshold=int(_flag("S18_BCAST", "4096")),
             skew_factor=int(_flag("S18_SKEW", "2")),
+            warmup_oracle=int(_flag("S18_WARMUP_ORACLE", str(1 << 21))),
         )
         procs = process_env()
         n = config.mesh_devices
@@ -170,6 +186,14 @@ class EngineConfig:
             raise ValueError(f"S18_MESH={n}: expected a multiple of "
                              f"S18_NUM_PROCS={procs[1]}")
         return config
+
+
+def total_limit(config: EngineConfig) -> int:
+    """The largest intermediate total the engines materialize: the guard
+    (max_intermediate), and the technical cap past it or when the guard
+    is off."""
+    mi = config.max_intermediate
+    return min(mi, HARD_INTERMEDIATE_CAP) if mi > 0 else HARD_INTERMEDIATE_CAP
 
 
 def process_env() -> Optional[Tuple[str, int, int]]:

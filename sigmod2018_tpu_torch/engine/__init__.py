@@ -1,17 +1,27 @@
-from .compiled import CompiledTorchEngine, SpecResult
-from .executor import (HARD_INTERMEDIATE_CAP, TIERS, Component,
-                       IntermediateBlowup, NullResult, PendingResult,
-                       TorchEngine, format_batch)
+"""The engines.  The exports load their module on first access, so that
+`engine.oracle` and `engine.factorized`'s host half import without torch
+(io/repl.py answers its warm-up tier with them while torch imports)."""
 
-__all__ = [
-    "CompiledTorchEngine",
-    "HARD_INTERMEDIATE_CAP",
-    "SpecResult",
-    "TIERS",
-    "Component",
-    "IntermediateBlowup",
-    "NullResult",
-    "PendingResult",
-    "TorchEngine",
-    "format_batch",
-]
+import importlib
+
+_EXPORTS = {
+    "CompiledTorchEngine": "compiled",
+    "SpecResult": "compiled",
+    "HARD_INTERMEDIATE_CAP": "executor",
+    "TIERS": "executor",
+    "Component": "executor",
+    "IntermediateBlowup": "executor",
+    "NullResult": "executor",
+    "PendingResult": "executor",
+    "TorchEngine": "executor",
+    "format_batch": "executor",
+}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name: str):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f".{module}", __name__), name)

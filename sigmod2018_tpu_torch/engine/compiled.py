@@ -47,15 +47,14 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..config import DEFAULT_CONFIG, EngineConfig
+from ..config import DEFAULT_CONFIG, EngineConfig, total_limit
 from ..frontend.parser import FilterPred, JoinPred, Query, parse_query
 from ..planner import plan_joins
 from ..planner.join_order import estimate_cardinalities
 from ..storage.catalog import Catalog, identity_digest, prep_cache_dir
 from ..utils.padding import size_class
-from .executor import (HARD_INTERMEDIATE_CAP, IntermediateBlowup,
-                       NullResult, PendingResult, Result, TorchEngine,
-                       format_batch)
+from .executor import (IntermediateBlowup, NullResult, PendingResult,
+                       Result, TorchEngine, format_batch)
 
 # Dispatches by the way this engine sized them, counted in
 # CompiledTorchEngine.counts beside the base engine's segment_reads:
@@ -68,14 +67,6 @@ SPEC_COUNTS = ("no_class", "learned", "guessed", "retried", "incremental")
 FASTPATH_MAX = 8192  # texts kept by the per-text fast path
 
 Cols = Dict[Tuple[int, int], Tuple[torch.Tensor, int]]
-
-
-def total_limit(config: EngineConfig) -> int:
-    """The largest intermediate total a speculative line may hold: the
-    guard (max_intermediate), and the technical cap past it or when the
-    guard is off, as in TorchEngine._sized."""
-    mi = config.max_intermediate
-    return min(mi, HARD_INTERMEDIATE_CAP) if mi > 0 else HARD_INTERMEDIATE_CAP
 
 
 class SpecResult(PendingResult):

@@ -59,7 +59,7 @@ import numpy as np
 import torch
 
 from .. import ops
-from ..config import DEFAULT_CONFIG, EngineConfig
+from ..config import DEFAULT_CONFIG, HARD_INTERMEDIATE_CAP, EngineConfig
 from ..frontend.parser import FilterPred, JoinPred, Query
 from ..ops import radix_join
 from ..ops.u64 import MASK64
@@ -120,11 +120,6 @@ Result = Union[PendingResult, NullResult]
 
 class IntermediateBlowup(RuntimeError):
     """A planned join order produced an intermediate beyond the cap."""
-
-
-# Technical ceiling on any materialized intermediate, independent of the
-# configurable max_intermediate guard.
-HARD_INTERMEDIATE_CAP = 1 << 27
 
 TIERS = ("materialized", "factorized_proactive", "factorized_blowup",
          "text_order")

@@ -40,19 +40,25 @@ Two twin implementations share `plan_forest`:
   * `factorized_result` — plain PyTorch ops on the engine's padded
     device columns (u64 bits in int64, ops/u64.py), returning a
     PendingResult for the engine's retry chain, with no host sync.
+
+The plan and the NumPy twin import without torch: io/repl.py's warm-up
+tier answers with them while torch is still importing.  The device half
+imports torch and ops/ where it runs.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import TYPE_CHECKING, Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from ..frontend.parser import FilterPred, Query
-from ..ops.select import compare_mask, equal_mask, live_mask
-from ..ops.u64 import MASK64, ranks_u64
+
+if TYPE_CHECKING:
+    import torch
+
+MASK64 = (1 << 64) - 1  # ops/u64.py's, which imports torch
 
 
 # ---------------------------------------------------------------------------
@@ -330,6 +336,8 @@ def message(sw: torch.Tensor, se: torch.Tensor, perm: torch.Tensor,
     (liveness is folded into the masks), so no live lengths are needed:
     a receiver key 2^64-1, whose range runs on over the sender's pads,
     adds only zeros."""
+    import torch
+
     zero = sw.new_zeros(1)
     pw = torch.cat([zero, torch.cumsum(sw.index_select(0, perm), 0)])
     pe = torch.cat([zero.to(torch.int32),
@@ -352,6 +360,10 @@ def edge_ranks(engine, srel: int, scol: int, rrel: int, rcol: int):
     matters, since pad rows carry weight 0 on both sides.  Queries of a
     batch dispatch from several threads; each edge is built once
     (TorchEngine._once)."""
+    import torch
+
+    from ..ops.u64 import ranks_u64
+
     def build():
         sorted_keys, perm = engine.device_sorted_column(srel, scol)
         rkeys, _ = engine.device_column(rrel, rcol)
@@ -375,6 +387,9 @@ def factorized_result(engine, query: Query):
     plan = plan_forest(query)
     if plan is None:
         return None
+    import torch
+
+    from ..ops.select import compare_mask, equal_mask, live_mask
     from .executor import PendingResult
 
     def col(b: int, c: int):

@@ -24,6 +24,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+# K1 (ops/ms_join.py), K4 and K5 (ops/radix_join.py)
+NAMES = ("stair_counts", "slot_fill", "probe_counts")
 
 _lock = threading.Lock()  # guards _libs and _name_locks
 _libs: dict = {}

@@ -3,8 +3,9 @@ kernel table against counts made by hand at the shapes of its cases, the
 case builders against what their cases claim to exercise, the workload
 parameters against tools/regen_workloads.sh, the tier check, the
 checks of the compiled engine's runs, the sort-form message against
-the port's, and phase 10's driver (two ranks of the protocol driver,
-the collective costs) run on the CPU at a small size."""
+the port's, phase 7b's fresh processes and tools/cold_start.py's studies
+on workloads/zipf, and phase 10's driver (two ranks of the protocol
+driver, the collective costs) run on the CPU at a small size."""
 
 import importlib.util
 from pathlib import Path
@@ -244,11 +245,100 @@ def test_recording_passes_a_query_s_steps_through():
 
 
 def test_harness_runs_end_with_blocking_prep():
-    assert [label for label, _ in cs.HARNESS_RUNS] == [
-        "cold", "warm", "warm, blocking prep"]
-    assert [env for _, env in cs.HARNESS_RUNS] == [
-        {}, {}, {"S18_ASYNC_PREP": "0"}]
+    assert list(cs.HARNESS_RUNS) == list(cs.WORKLOADS)
+    for name, runs in cs.HARNESS_RUNS.items():
+        if name in ("big", "bigdom"):
+            assert [label for label, _ in runs] == [
+                "cold", "warm", "warm, blocking prep"]
+            assert [env for _, env in runs] == [
+                {}, {}, {"S18_ASYNC_PREP": "0"}]
+        else:
+            assert runs == (("warm", {}),
+                            ("warm, no tier", {"S18_WARMUP_ORACLE": "0"}))
+    assert set(cs.NO_TIER_WORKLOADS) == {"big", "bigdom", "zipfbig"}
     assert "import torch" in cs.FRESH_PROCESS
+
+
+def test_import_time_top_parses_importtime():
+    top = cs.import_time_top(3)
+    assert len(top) == 3 and top[0][0] == "torch"
+    assert top[0][1] >= top[1][1] >= top[2][1] > 0
+
+
+def test_thread_import_times_torch_in_a_thread():
+    assert 0 < cs.thread_import_seconds() < 120
+
+
+def test_harness_run_on_the_cpu(tmp_path, monkeypatch):
+    """Phase 7b's fresh process on workloads/zipf, on the CPU: exact
+    lines, the tier counts and the start timeline parsed; with the tier
+    off it answers nothing."""
+    from sigmod2018_tpu_torch.tools.workload import write_relations
+
+    monkeypatch.setattr(cs, "SMOKE_DIR", tmp_path)
+    monkeypatch.setenv("S18_PLATFORM", "cpu")
+    write_relations(tmp_path / "zipf", **cs.WORKLOADS["zipf"])
+    for extra in ({}, {"S18_WARMUP_ORACLE": "0"}):
+        rec = cs.harness_run("zipf", cs.ROOT, tmp_path / "cache", extra)
+        assert rec["queries"] == 12 and rec["ms"] >= 0
+        assert rec["engine"].startswith("engine CompiledTorchEngine: ")
+        assert sum(rec["tiers"].values()) == 12
+        assert set(rec["start"]) >= {"done_read", "torch_imported",
+                                     "first_line", "last_line"}
+        assert cs._start_text(rec["start"]).startswith("start card_started ")
+    assert rec["tiers"]["warmup_host"] == 0
+    assert cs._start_text(None) == "no start line"
+
+
+def test_cold_start_turns():
+    from sigmod2018_tpu_torch.tools import cold_start
+
+    assert cold_start.turns(4) == [0, 1, 1, 0, 0, 1, 1, 0]
+    assert cold_start.serving_s({"engine_built": 2.0, "last_line": 3.5}) \
+        == 1.5
+    assert cold_start.serving_s({"engine_built": None, "last_line": 3.5}) \
+        is None
+
+
+@pytest.mark.parametrize("label", ["arena", "switch"])
+def test_cold_start_study_on_the_cpu(tmp_path, monkeypatch, capsys, label):
+    """Each study's two drivers on workloads/zipf, one warm run each:
+    exact lines (harness_run checks them), one median line per arm."""
+    import sys
+
+    from sigmod2018_tpu_torch.tools import cold_start
+    from sigmod2018_tpu_torch.tools.workload import write_relations
+
+    monkeypatch.setattr(cs, "SMOKE_DIR", tmp_path)
+    monkeypatch.setitem(sys.modules, "chip_smoke", cs)
+    monkeypatch.setenv("S18_PLATFORM", "cpu")
+    write_relations(tmp_path / "zipf", **cs.WORKLOADS["zipf"])
+    _, env, arms = cold_start.STUDIES[label]
+    recs = cold_start.study(label, ("zipf",), env,
+                            [(arm, cs.ROOT, driver) for arm, driver in arms],
+                            1, "cpu")
+    names = [arm for arm, _ in arms]
+    assert [(r["arm"], r["kind"]) for r in recs] == [
+        (names[0], "cold"), (names[1], "cold"), (names[0], "warm"),
+        (names[1], "warm")]
+    assert all(r["queries"] == 12 for r in recs)
+    if env:  # the arena study: the tier off
+        assert [r["tiers"]["warmup_host"] for r in recs] == [0] * 4
+    out = capsys.readouterr().out
+    assert out.count(f"cold start median [{label} zipf ") == 2
+
+
+def test_cold_start_arms_run_the_driver_after_their_prelude():
+    from sigmod2018_tpu_torch.io import repl
+    from sigmod2018_tpu_torch.tools import cold_start
+
+    flag, code = cold_start.patched("sys.setswitchinterval(1e-4)")
+    assert flag == "-c" and code.endswith("\nrepl.main()")
+    assert code.index("sys.setswitchinterval") < code.index("repl.main()")
+    # the arena study's variant replaces a function the driver has
+    assert callable(repl.one_malloc_arena)
+    assert "repl.one_malloc_arena = lambda: False" in \
+        cold_start.STUDIES["arena"][2][1][1][1]
 
 
 def test_one_timer_for_chip_smoke_and_the_tools():

@@ -326,6 +326,7 @@ def test_driver_engine_choice(paths, jax_run, tmp_path, monkeypatch, env,
                               engine):
     monkeypatch.setenv("S18_PREP_CACHE", str(tmp_path))
     monkeypatch.setenv("S18_PLATFORM", "cpu")
+    monkeypatch.setenv("S18_WARMUP_ORACLE", "0")  # the engine serves all
     monkeypatch.delenv("S18_COMPILE_QUERIES", raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
@@ -364,7 +365,8 @@ def test_many_batch_threads(paths, jax_run, tmp_path, monkeypatch):
 
     def run():
         served.append(serve(_stream(paths, texts), out,
-                            EngineConfig(platform="cpu", batch_workers=32)))
+                            EngineConfig(platform="cpu", batch_workers=32,
+                                         warmup_oracle=0)))
 
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)

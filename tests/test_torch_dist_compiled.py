@@ -622,7 +622,8 @@ def test_run_protocol_mesh4_matches_jax(catalogs, tmp_path, monkeypatch):
     jout = io.StringIO()
     jax_run_protocol(_stream(paths, QUERIES), jout,
                      JaxConfig(vault=False, mesh_devices=4))
-    for k, v in (("S18_MESH", "4"), ("S18_PLATFORM", "cpu")):
+    for k, v in (("S18_MESH", "4"), ("S18_PLATFORM", "cpu"),
+                 ("S18_WARMUP_ORACLE", "0")):  # the mesh serves every query
         monkeypatch.setenv(k, v)
     out = io.StringIO()
     tiers = run_protocol(_stream(paths, QUERIES), out)

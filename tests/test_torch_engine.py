@@ -324,13 +324,14 @@ def test_run_protocol(tmp_path, catalogs, expected):
               + ["F"] + bad[2:] + QUERIES[4:] + ["F", "Exit"])
     out = io.StringIO()
     tiers = run_protocol(io.StringIO("\n".join(stream) + "\n"), out,
-                         EngineConfig(platform="cpu", batch_workers=4))
+                         EngineConfig(platform="cpu", batch_workers=4,
+                                      warmup_oracle=0))
     want = (expected[:4] + ["NULL", "NULL"] + ["NULL NULL", "NULL"]
             + expected[4:])
     assert out.getvalue().splitlines() == want
     # every well-formed query is counted under the tier that served it
     assert tiers == dict(dict.fromkeys(texec.TIERS, 0),
-                         materialized=len(QUERIES))
+                         materialized=len(QUERIES), warmup_host=0)
 
 
 def test_main_prints_tier_counts(tmp_path):
@@ -349,7 +350,7 @@ def test_main_prints_tier_counts(tmp_path):
     stream = "\n".join([str(p) for p in paths] + ["Done", text, QUERIES[0],
                                                   "F"]) + "\n"
     env = dict(os.environ, S18_PLATFORM="cpu", S18_FACTORIZE_MIN=str(1 << 16),
-               PYTHONPATH=str(ROOT))
+               S18_WARMUP_ORACLE="0", PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-m", "sigmod2018_tpu_torch"],
                           input=stream, env=env, cwd=tmp_path,
                           capture_output=True, text=True, timeout=300)
@@ -357,7 +358,7 @@ def test_main_prints_tier_counts(tmp_path):
     assert len(proc.stdout.splitlines()) == 2
     assert proc.stderr.strip().splitlines()[-1] == (
         "served by tier: materialized=1 factorized_proactive=1 "
-        "factorized_blowup=0 text_order=0")
+        "factorized_blowup=0 text_order=0 warmup_host=0")
     # before it, the default engine's counts: the fused single join
     # needed no size class and nothing was read back
     assert proc.stderr.strip().splitlines()[-2] == (

@@ -80,12 +80,30 @@ def test_tool_modules_import_with_jax_blocked(module):
     _import_alone(module)
 
 
-def _import_alone(module: str) -> None:
-    code = _BLOCKED_IMPORT.split("import sigmod2018_tpu_torch")[0] + (
+@pytest.mark.parametrize("module", ["config", "engine", "engine.oracle",
+                                    "engine.factorized", "io.repl",
+                                    "storage.catalog", "frontend.parser"])
+def test_host_modules_import_with_torch_blocked(module):
+    """The driver's path up to the catalog load and its warm-up tier's
+    host answers, each on its own in a fresh process with neither jax
+    nor torch importable: `python -m sigmod2018_tpu_torch` imports torch
+    only in the thread that starts the card."""
+    _import_alone(module, torch_too=True)
+
+
+def _import_alone(module: str, torch_too: bool = False) -> None:
+    code = _BLOCKED_IMPORT.split("import sigmod2018_tpu_torch")[0]
+    barred = ("sigmod2018_tpu",)
+    if torch_too:
+        code = code.replace('name.startswith(("jax.", "jaxlib"))',
+                            'name.startswith(("jax.", "jaxlib")) or '
+                            'name.split(".")[0] == "torch"')
+        barred += ("torch",)
+    code += (
         f"import importlib\n"
         f"m = importlib.import_module('sigmod2018_tpu_torch.{module}')\n"
         f"assert not any(n == 'jax' or n.startswith('jax.') "
-        f"or n.split('.')[0] == 'sigmod2018_tpu' for n in sys.modules)\n"
+        f"or n.split('.')[0] in {barred!r} for n in sys.modules)\n"
         f"print(m.__name__)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)

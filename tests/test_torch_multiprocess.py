@@ -283,7 +283,8 @@ def _one_process(text: str, cache, **s18) -> tuple:
                exchange=s18.get("S18_EXCHANGE", "a2a"),
                bcast_threshold=int(s18.get("S18_BCAST", 4096)),
                skew_factor=int(s18.get("S18_SKEW", 2)),
-               compile_queries=str(s18.get("S18_COMPILE_QUERIES", 1)) != "0")
+               compile_queries=str(s18.get("S18_COMPILE_QUERIES", 1)) != "0",
+               warmup_oracle=0)  # as under a group: the mesh serves all
     old = os.environ.get("S18_PREP_CACHE")
     os.environ["S18_PREP_CACHE"] = str(cache)
     try:

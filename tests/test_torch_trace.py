@@ -80,8 +80,9 @@ def _stream(paths, texts=QUERIES, batches=2) -> str:
 
 
 def _port(paths, texts=QUERIES, **cfg):
-    """(lines, stderr lines, engine) of the port's serve on the CPU."""
-    cfg = dict(dict(platform="cpu", batch_workers=1), **cfg)
+    """(lines, stderr lines, engine) of the port's serve on the CPU,
+    without its warm-up tier."""
+    cfg = dict(dict(platform="cpu", batch_workers=1, warmup_oracle=0), **cfg)
     out, err = io.StringIO(), io.StringIO()
     with contextlib.redirect_stderr(err):
         engine = serve(io.StringIO(_stream(paths, texts)), out,
@@ -289,7 +290,8 @@ def test_first_batch_answered_while_prefetch_waits(paths, monkeypatch):
     monkeypatch.setattr(TorchEngine, "prefetch", gated)
     out = _FirstLineGate(gate)
     engine = serve(io.StringIO(_stream(paths)), out,
-                   EngineConfig(platform="cpu", batch_workers=1))
+                   EngineConfig(platform="cpu", batch_workers=1,
+                                warmup_oracle=0))
     assert seen.opened is True  # released by the first line written
     assert seen.done  # joined before serve returned
     assert out.getvalue().splitlines() == want
