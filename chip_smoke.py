@@ -139,6 +139,20 @@ Phases, each of which must pass:
    call of each collective on 4 shards as two ranks and in one process
    (host clock around the call and a synchronize).
 
+11. the routing thresholds S18_EMIT_MS_MIN and S18_RADIX_MIN, in fresh
+   processes under the contest harness (as in phase 7b), each arm on each
+   workload from its own copy of phase 5's prep cache: on all five
+   workloads with the warm-up tier off, once at 0/0 (every emitting count
+   and every auto fused join takes K1, zipf's joins of 2^16 padded rows
+   too) and once at 2^62/2^62 (K1 never launches); each run
+   must exit 0 with every line exact, K1 must launch on every workload
+   of the first arm and on none of the second.  Then on big, bigdom and
+   zipfbig the defaults (2^18/2^18) against the crossovers that
+   tools.bench_probe measured on the H100 (2^22/2^20), three runs an arm
+   in turns: each run's timed ms and K1/K4/K5 launches, each arm's
+   median, and the pairs each arm won print with the card's name and
+   power limit.  No default moves.
+
 Before them come the prep and timed phases of both engines per workload,
 side by side.  The line before the last is the kernel table as JSON (per
 kernel: time, plain and library times, bound and its share, launches on
@@ -969,8 +983,9 @@ def harness_run(name: str, root: Path, cache: Path, extra: dict,
     """One fresh `python -m sigmod2018_tpu_torch` (or `python *driver`)
     of the package under `root` on workload `name` under tools/harness.py
     (1 s prep window), with prep cache `cache`: its timed ms, query count,
-    whole run's seconds, the engine's counts line, tier counts and start
-    timeline (None when it prints none).  Every line must be exact and
+    whole run's seconds, the engine's counts line, tier counts, K1/K4/K5
+    launches and start timeline (each of the last two None when it
+    prints none).  Every line must be exact and
     the process must end its serving normally (its tier line printed)."""
     import re
 
@@ -991,6 +1006,8 @@ def harness_run(name: str, root: Path, cache: Path, extra: dict,
     tiers = next((ln for ln in err if ln.startswith("served by tier: ")),
                  None)
     engine = next((ln for ln in err if ln.startswith("engine ")), None)
+    launches = next((ln for ln in err
+                     if ln.startswith("kernel launches: ")), None)
     if proc.returncode != 0 or hit is None or tiers is None or engine is None:
         raise AssertionError(
             f"harness on {name} ({extra}, {root}): rc {proc.returncode}\n"
@@ -998,9 +1015,15 @@ def harness_run(name: str, root: Path, cache: Path, extra: dict,
     start = next((json.loads(ln[len("start "):])
                   for ln in err if ln.startswith("start {")), None)
     return dict(ms=int(hit.group(2)), queries=int(hit.group(1)), wall=wall,
-                engine=engine, tiers={k: int(v) for k, v in (
-                    kv.split("=") for kv in tiers.split(": ")[1].split())},
+                engine=engine, tiers=_counts(tiers),
+                launches=None if launches is None else _counts(launches),
                 start=start)
+
+
+def _counts(line: str) -> dict:
+    """{name: int} of a `label: name=N name=N ..` line of the driver."""
+    return {k: int(v) for k, v in (kv.split("=")
+                                   for kv in line.split(": ")[1].split())}
 
 
 def _start_text(start) -> str:
@@ -1468,6 +1491,124 @@ def phase_multiprocess(card: str, phases: dict, mesh_times: dict) -> dict:
     return k1
 
 
+# Phase 11: the routing thresholds S18_EMIT_MS_MIN and S18_RADIX_MIN
+# (read at import) in fresh processes under the contest harness, each arm
+# on each workload from its own copy of phase 5's prep cache.  Edge arms,
+# once per workload, with the warm-up tier off so that the card serves
+# every query: at 0/0 every emitting count and every auto fused join takes
+# K1, at 2^62/2^62 none does.  Crossover arms, in turns on the
+# 2,000,000-row workloads: the defaults against the crossovers that
+# tools/bench_probe measured on the H100 (probe 2^22, fused 2^20).
+HUGE_ROWS = str(1 << 62)
+THRESHOLD_EDGE = (
+    ("0/0", {"S18_EMIT_MS_MIN": "0", "S18_RADIX_MIN": "0"}),
+    ("2^62/2^62", {"S18_EMIT_MS_MIN": HUGE_ROWS, "S18_RADIX_MIN": HUGE_ROWS}))
+# zipf too: its joins (2^16 padded rows a side) are the only ones of the
+# five below the default thresholds, so only there does 0/0 change a route
+THRESHOLD_EDGE_WORKLOADS = ("big", "bigdom", "zipfbig", "scaled", "zipf")
+THRESHOLD_CROSSOVER = (
+    ("defaults 2^18/2^18", {}),
+    ("crossovers 2^22/2^20", {"S18_EMIT_MS_MIN": str(1 << 22),
+                              "S18_RADIX_MIN": str(1 << 20)}))
+THRESHOLD_RUNS = 3  # per crossover arm and workload
+
+
+def _arm_cache(label: str, name: str) -> Path:
+    """A fresh copy of phase 5's prep cache for one arm on one workload."""
+    tag = "".join(c if c.isalnum() else "_" for c in label)
+    cache = SMOKE_DIR / f"threshold-prep-{tag}-{name}"
+    shutil.rmtree(cache, ignore_errors=True)
+    shutil.copytree(PREP_CACHE, cache)
+    return cache
+
+
+def threshold_run(name: str, label: str, extra: dict, cache: Path,
+                  card: str) -> dict:
+    """One harness run of an arm (harness_run holds every line to the
+    .result), printed with its kernel launches."""
+    rec = harness_run(name, ROOT, cache, extra)
+    if rec["launches"] is None:
+        raise AssertionError(f"thresholds [{name} {label}]: no kernel "
+                             f"launches line")
+    launches = " ".join(f"{k} {v}" for k, v in rec["launches"].items())
+    print(f"thresholds [{name} {label}] {rec['queries']} queries exact; "
+          f"launches {launches}; timed phase {rec['ms']} ms; whole harness "
+          f"run {rec['wall']:.3f} s; {rec['engine']}; served by tier "
+          f"{rec['tiers']} ({card})", flush=True)
+    return rec
+
+
+def threshold_edges(card: str, workloads=THRESHOLD_EDGE_WORKLOADS) -> dict:
+    """The edge arms on `workloads`: {(arm, workload): K1 launches}.
+    Every query must be served by the engine, none by the warm-up tier."""
+    k1 = {}
+    for name in workloads:
+        for label, env in THRESHOLD_EDGE:
+            rec = threshold_run(name, label, dict(env, S18_WARMUP_ORACLE="0"),
+                                _arm_cache(label, name), card)
+            if rec["tiers"]["warmup_host"]:
+                raise AssertionError(f"thresholds [{name} {label}]: the "
+                                     f"warm-up tier answered")
+            k1[label, name] = rec["launches"]["K1"]
+    return k1
+
+
+def check_edge_launches(k1: dict) -> None:
+    """K1 launched on every workload of the 0/0 arm and on none of the
+    2^62/2^62 arm's."""
+    for (label, name), n in k1.items():
+        if label == THRESHOLD_EDGE[0][0] and n <= 0:
+            raise AssertionError(f"thresholds [{name} {label}]: K1 never "
+                                 f"launched")
+        if label == THRESHOLD_EDGE[1][0] and n:
+            raise AssertionError(f"thresholds [{name} {label}]: K1 "
+                                 f"launched {n} times")
+
+
+def threshold_crossovers(card: str, workloads=K1_WORKLOADS,
+                         runs: int = THRESHOLD_RUNS) -> dict:
+    """The crossover arms, `runs` each in turns per workload (A B B A ..):
+    {workload: {arm: [timed ms in run order]}}.  Prints each arm's median
+    and launches and the pairs each arm won (pair i: the i-th run of
+    each); this moves no default."""
+    from sigmod2018_tpu_torch.tools.cold_start import turns
+
+    out = {}
+    for name in workloads:
+        caches = [_arm_cache(label, name) for label, _ in THRESHOLD_CROSSOVER]
+        recs = {label: [] for label, _ in THRESHOLD_CROSSOVER}
+        for i in turns(runs):
+            label, env = THRESHOLD_CROSSOVER[i]
+            recs[label].append(threshold_run(name, label, env, caches[i],
+                                             card))
+        for label, rs in recs.items():
+            launches = {k: [r["launches"][k] for r in rs]
+                        for k in rs[0]["launches"]}
+            print(f"thresholds median [{name} {label}] of {len(rs)} runs: "
+                  f"timed phase {statistics.median(r['ms'] for r in rs)} ms "
+                  f"({[r['ms'] for r in rs]}); launches per run {launches} "
+                  f"({card})", flush=True)
+        ms = [[r["ms"] for r in rs] for rs in recs.values()]
+        won = [sum(a < b for a, b in zip(ms[0], ms[1])),
+               sum(b < a for a, b in zip(ms[0], ms[1]))]
+        print(f"thresholds pairs [{name}]: "
+              + ", ".join(f"{label} won {w}" for (label, _), w
+                          in zip(THRESHOLD_CROSSOVER, won))
+              + f", ties {runs - sum(won)} ({card})", flush=True)
+        out[name] = dict(zip(recs, ms))
+    return out
+
+
+def phase_thresholds(card: str) -> None:
+    """Phase 11 (see THRESHOLD_EDGE): the edge arms, held to their K1
+    launches, then the crossover arms."""
+    t0 = time.perf_counter()
+    check_edge_launches(threshold_edges(card))
+    threshold_crossovers(card)
+    print(f"phase 11 (thresholds): {time.perf_counter() - t0:.1f} s "
+          f"({card})", flush=True)
+
+
 def _check_path(name: str, label: str, counts: dict, table_joins) -> None:
     """The kernels of the path ran, and the forced member's kernel branch
     served at least one join.  `label` is the fused-join member."""
@@ -1555,6 +1696,7 @@ def main() -> int:
     mesh_k1, mesh_times = phase_mesh(card, phases)
     phase_tools(card)
     mp_k1 = phase_multiprocess(card, phases, mesh_times)
+    phase_thresholds(card)
 
     k1_main, k1_big = k1_times[K1_MAIN_CASE], k1_times[K1_BIG_BUILD_CASE]
     k4_err, k4_times = radix_kernels["slot_fill"]

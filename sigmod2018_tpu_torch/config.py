@@ -196,6 +196,19 @@ def total_limit(config: EngineConfig) -> int:
     return min(mi, HARD_INTERMEDIATE_CAP) if mi > 0 else HARD_INTERMEDIATE_CAP
 
 
+def env_int(name: str, default: int) -> int:
+    """The integer environment switch `name`, `default` when unset.  It
+    takes what `int()` takes, as the JAX package's import-time reads do,
+    and raises ValueError naming the variable on anything else."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    try:
+        return int(raw)
+    except ValueError:
+        raise ValueError(f"{name}={raw!r}: expected an integer") from None
+
+
 def process_env() -> Optional[Tuple[str, int, int]]:
     """(S18_COORD_ADDR, S18_NUM_PROCS, S18_PROC_ID), or None when
     S18_COORD_ADDR is unset; a missing or out-of-range count or id

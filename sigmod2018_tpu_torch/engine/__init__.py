@@ -15,6 +15,7 @@ _EXPORTS = {
     "PendingResult": "executor",
     "TorchEngine": "executor",
     "format_batch": "executor",
+    "execute_query_numpy": "oracle",
 }
 
 __all__ = list(_EXPORTS)

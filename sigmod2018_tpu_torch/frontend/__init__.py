@@ -5,6 +5,7 @@ from .parser import (
     parse_query,
     parse_work_file,
 )
+from .sql import query_to_sql
 
 __all__ = [
     "FilterPred",
@@ -12,4 +13,5 @@ __all__ = [
     "Query",
     "parse_query",
     "parse_work_file",
+    "query_to_sql",
 ]

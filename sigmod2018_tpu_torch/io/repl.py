@@ -55,8 +55,9 @@ returns it; `run_protocol` returns how many queries each serving tier
 answered (`TorchEngine.tiers`, and `warmup_host` for the warm-up tier).
 `main` prints on stderr at exit one `start {..}` JSON line (seconds from
 the process's start to each step of `STEPS`, null for a step not
-reached), the engine's counts (host reads of intermediate totals and, for
-the compiled engine, how each query was sized) and then the tiers.
+reached), a `kernel launches: K1=.. K4=.. K5=..` line (`kernel_launches`),
+the engine's counts (host reads of intermediate totals and, for the
+compiled engine, how each query was sized) and then the tiers.
 
 With S18_COORD_ADDR, S18_NUM_PROCS and S18_PROC_ID set and S18_MESH > 1,
 W processes serve together (parallel/multihost.py): each reads the
@@ -432,11 +433,22 @@ class _Clocked:
         return line
 
 
+def kernel_launches() -> Dict[str, int]:
+    """K1/K4/K5 launches in this process (ops.ms_join.LAUNCHES,
+    ops.radix_join.LAUNCHES); 0 for a kernel whose module was never
+    imported, so that S18_BACKEND=numpy still imports no torch."""
+    ops = __name__.rsplit(".", 2)[0] + ".ops"
+    ms_join = sys.modules.get(ops + ".ms_join")
+    radix_join = sys.modules.get(ops + ".radix_join")
+    return dict(K1=ms_join.LAUNCHES if ms_join else 0,
+                K4=radix_join.LAUNCHES["slot_fill"] if radix_join else 0,
+                K5=radix_join.LAUNCHES["probe_counts"] if radix_join else 0)
+
+
 def _process_report(engine, t0: float, t_serving: Optional[float]) -> str:
     """The `process {..}` line of a rank (module docstring)."""
     import collections
 
-    from ..ops import ms_join, radix_join
     from ..parallel import collectives
     from ..parallel.mesh import process_group
     from ..parallel.multihost import TRANSPORT
@@ -447,9 +459,7 @@ def _process_report(engine, t0: float, t_serving: Optional[float]) -> str:
     return "process " + json.dumps(dict(
         rank=rank, world=world, transport=TRANSPORT,
         collectives=dict(collectives.CALLS),
-        launches=dict(K1=ms_join.LAUNCHES,
-                      K4=radix_join.LAUNCHES["slot_fill"],
-                      K5=radix_join.LAUNCHES["probe_counts"]),
+        launches=kernel_launches(),
         counts=dict(engine.counts), tiers=dict(engine.tiers),
         join_strategies=dict(collections.Counter(
             getattr(engine, "join_strategies", ()))),
@@ -506,6 +516,9 @@ def main() -> None:
         finally:
             print("start " + json.dumps(log.timeline(origin)),
                   file=sys.stderr)
+        print("kernel launches: " + " ".join(
+            f"{k}={v}" for k, v in kernel_launches().items()),
+            file=sys.stderr)
         print(f"engine {type(engine).__name__}:" + "".join(
             f" {k}={v}" for k, v in engine.counts.items()), file=sys.stderr)
         print("served by tier: " + " ".join(

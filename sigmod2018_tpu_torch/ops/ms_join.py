@@ -31,6 +31,7 @@ from typing import Tuple
 
 import torch
 
+from ..config import env_int
 from .select import Count, live_mask
 from .sort_join import _ccum_total, join_build, join_probe_count
 from .u64 import flip
@@ -44,8 +45,15 @@ LAUNCHES = 0
 _count_lock = threading.Lock()
 
 # Emitting-path crossover: intermediate joins whose padded sizes reach
-# this take the staircase counting member instead of searchsorted ranks.
-EMIT_MS_MIN_ROWS = 1 << 18
+# this take the staircase counting member instead of searchsorted ranks
+# (tools/bench_probe.py measures the crossover on the card).  Read at
+# import, as the JAX package reads it: S18_EMIT_MS_MIN overrides, 0 or
+# less sends every size to the staircase.  The JAX package's
+# S18_EMIT_MS_FORCE has no counterpart: it only sent at-scale counts off
+# the TPU into Pallas interpret mode, and here the tensors' device alone
+# picks the kernel or its plain twin, so the port always routes as the
+# JAX package does under S18_EMIT_MS_FORCE=1.
+EMIT_MS_MIN_ROWS = env_int("S18_EMIT_MS_MIN", 1 << 18)
 
 _MAX_ROWS = (1 << 31) - 1024  # int32 row indices inside the kernel
 

@@ -45,6 +45,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from ..config import env_int
 from .agg_join import (join_checksum_fused, join_checksum_fused_presorted,
                        join_checksum_fused_table,
                        join_checksum_fused_table_pref)
@@ -57,7 +58,8 @@ MAX_SLOTS = 1 << 13   # per-bucket slot cap of radix_join_checksum
 
 # Fused joins whose larger padded side reaches this take the staircase
 # member; forced radix builds prep artifacts for base columns this large.
-RADIX_MIN_ROWS = 1 << 18
+# Read at import, as the JAX package reads it: S18_RADIX_MIN overrides.
+RADIX_MIN_ROWS = env_int("S18_RADIX_MIN", 1 << 18)
 
 # Kernel launches since the last reset (plain-twin calls do not count),
 # and which branch served each forced radix join.  Updated under

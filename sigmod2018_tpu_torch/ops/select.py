@@ -61,6 +61,11 @@ def gather_u64(col: torch.Tensor, rowids: torch.Tensor) -> torch.Tensor:
     return col.index_select(0, rowids)
 
 
+def gather_rows(row: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """row[positions] (positions index the first axis)."""
+    return row[positions]
+
+
 def take_cols(table: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     """Compact an [A, P] row-id matrix to table[:, positions]."""
     return table.index_select(1, positions)
@@ -72,3 +77,13 @@ def checksum(col: torch.Tensor, rowids: torch.Tensor,
     0-d tensor holding the u64 bits)."""
     live = live_mask(rowids.shape[0], n_valid, rowids.device)
     return torch.where(live, col.index_select(0, rowids), 0).sum()
+
+
+def checksum_many(cols: torch.Tensor, rowids: torch.Tensor,
+                  n_valid: Count) -> torch.Tensor:
+    """Batched checksum: cols [V, N] gathered by rowids [V, P] -> [V]
+    wrap-around u64 sums (int64 holding the u64 bits) over the live
+    prefix."""
+    live = live_mask(rowids.shape[1], n_valid, rowids.device)
+    vals = torch.gather(cols, 1, rowids.long())
+    return torch.where(live[None, :], vals, 0).sum(dim=1)

@@ -65,3 +65,30 @@ def store_relation(rel: Relation, path: str | os.PathLike) -> None:
         np.array([rel.num_tuples, rel.num_columns], dtype="<u8").tofile(f)
         for col in rel.columns:
             np.ascontiguousarray(col, dtype="<u8").tofile(f)
+
+
+def store_relation_csv(rel: Relation, path: str | os.PathLike) -> None:
+    """Write one row per line, comma-separated."""
+    with open(path, "w") as f:
+        for i in range(rel.num_tuples):
+            f.write(",".join(str(int(col[i])) for col in rel.columns))
+            f.write("\n")
+
+
+def dump_sql(rel: Relation, path: str | os.PathLike, table_name: str) -> None:
+    """PostgreSQL DDL and a COPY line that reads `<table_name>.tbl` (the
+    CSV of store_relation_csv)."""
+    with open(path, "w") as f:
+        cols = ", ".join(f"c{i} bigint" for i in range(rel.num_columns))
+        f.write(f"CREATE TABLE {table_name} ({cols});\n")
+        csv_name = f"{table_name}.tbl"
+        f.write(f"copy {table_name} from '{csv_name}' delimiter ',' "
+                f"NULL '';\n")
+
+
+def make_identity_relation(num_tuples: int, num_columns: int,
+                           name: str = "") -> Relation:
+    """Every column is 0..num_tuples-1, so join results are predictable."""
+    col = np.arange(num_tuples, dtype=np.uint64)
+    return Relation(columns=[col.copy() for _ in range(num_columns)],
+                    name=name)

@@ -156,10 +156,14 @@ def run(lo: int = 12, hi: int = 23, platform: str = "cuda",
     def fmt(x):
         return "none in range" if x is None else f"2^{x}"
 
+    def threshold(n):  # in force: S18_EMIT_MS_MIN, S18_RADIX_MIN
+        power = n > 0 and n & (n - 1) == 0
+        return f"2^{n.bit_length() - 1}" if power else str(n)
+
     print(f"bench_probe crossovers over 2^{lo}..2^{hi}: probe {fmt(probe_x)} "
-          f"(EMIT_MS_MIN_ROWS = 2^{EMIT_MS_MIN_ROWS.bit_length() - 1}), "
+          f"(EMIT_MS_MIN_ROWS = {threshold(EMIT_MS_MIN_ROWS)}), "
           f"fused {fmt(fused_x)}, both sides presorted {fmt(fused2_x)} "
-          f"(RADIX_MIN_ROWS = 2^{RADIX_MIN_ROWS.bit_length() - 1}); "
+          f"(RADIX_MIN_ROWS = {threshold(RADIX_MIN_ROWS)}); "
           f"sizes with a host-bound call: "
           f"{', '.join(f'2^{x}' for x in host_bound) or 'none'} ({note})",
           flush=True)

@@ -452,3 +452,49 @@ def test_phase_10_collective_costs_on_the_cpu(monkeypatch):
     for r in ranks:
         assert r["a2a_parts"].keys() == {"stage", "exchange", "unstage"}
         assert all(ms > 0 for ms in r["a2a_parts"].values())
+
+
+def test_phase_11_arms():
+    """The edge arms take every join to K1 or none to it; the crossover
+    arms are the defaults against bench_probe's crossovers, three runs
+    each on the workloads whose joins reach 2^21 padded rows."""
+    (zero, zero_env), (huge, huge_env) = cs.THRESHOLD_EDGE
+    assert zero_env == {"S18_EMIT_MS_MIN": "0", "S18_RADIX_MIN": "0"}
+    assert huge_env == dict.fromkeys(("S18_EMIT_MS_MIN", "S18_RADIX_MIN"),
+                                     str(1 << 62))
+    assert cs.THRESHOLD_EDGE_WORKLOADS == tuple(cs.WORKLOADS)
+    assert [env for _, env in cs.THRESHOLD_CROSSOVER] == [
+        {}, {"S18_EMIT_MS_MIN": "4194304", "S18_RADIX_MIN": "1048576"}]
+    assert cs.THRESHOLD_RUNS == 3 and cs.K1_WORKLOADS == ("big", "bigdom",
+                                                          "zipfbig")
+    cs.check_edge_launches({(zero, "big"): 4, (huge, "big"): 0})
+    with pytest.raises(AssertionError, match="K1 never launched"):
+        cs.check_edge_launches({(zero, "scaled"): 0})
+    with pytest.raises(AssertionError, match="K1 launched 2 times"):
+        cs.check_edge_launches({(huge, "zipfbig"): 2})
+
+
+def test_phase_11_runs_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """Phase 11's arms on workloads/zipf on the CPU, each from its own copy
+    of a prep cache: exact lines (harness_run checks them), the engine
+    serving every query of the edge arms, the driver's kernel launches
+    parsed (none on the CPU: the plain twins serve), one median line per
+    crossover arm and the pairs line."""
+    from sigmod2018_tpu_torch.tools.workload import write_relations
+
+    monkeypatch.setattr(cs, "SMOKE_DIR", tmp_path)
+    monkeypatch.setattr(cs, "PREP_CACHE", tmp_path / "prep")
+    (tmp_path / "prep").mkdir()
+    monkeypatch.setenv("S18_PLATFORM", "cpu")
+    write_relations(tmp_path / "zipf", **cs.WORKLOADS["zipf"])
+    k1 = cs.threshold_edges("cpu", ("zipf",))
+    assert k1 == {(label, "zipf"): 0 for label, _ in cs.THRESHOLD_EDGE}
+    got = cs.threshold_crossovers("cpu", ("zipf",), runs=1)
+    assert list(got["zipf"]) == [label for label, _ in cs.THRESHOLD_CROSSOVER]
+    assert all(len(ms) == 1 for ms in got["zipf"].values())
+    out = capsys.readouterr().out
+    assert out.count("thresholds [zipf ") == 4
+    assert "launches K1 0 K4 0 K5 0;" in out
+    assert out.count("thresholds median [zipf ") == 2
+    assert out.count("thresholds pairs [zipf]: ") == 1
+    assert len(list(tmp_path.glob("threshold-prep-*-zipf"))) == 4

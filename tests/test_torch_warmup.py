@@ -32,8 +32,6 @@ import torch
 from sigmod2018_tpu.config import EngineConfig as JaxConfig
 from sigmod2018_tpu.engine.executor import JaxEngine
 from sigmod2018_tpu.io.repl import run_protocol as jax_run_protocol
-from sigmod2018_tpu.storage.relation import (make_identity_relation,
-                                             store_relation)
 from sigmod2018_tpu_torch.config import EngineConfig
 from sigmod2018_tpu_torch.engine import factorized
 from sigmod2018_tpu_torch.engine.executor import TIERS, TorchEngine
@@ -42,6 +40,9 @@ from sigmod2018_tpu_torch.frontend.parser import parse_query
 from sigmod2018_tpu_torch.io import repl
 from sigmod2018_tpu_torch.parallel.launch import run_ranks
 from sigmod2018_tpu_torch.storage.catalog import Catalog
+from sigmod2018_tpu_torch.storage.relation import (Relation,
+                                                   make_identity_relation,
+                                                   store_relation)
 
 ROOT = Path(__file__).resolve().parent.parent
 RUN_TIMEOUT_S = 120
@@ -147,14 +148,12 @@ def _stream(paths, batches) -> list:
 @pytest.fixture
 def skewed_paths(tmp_path):
     """Three relations of 300, 200 and 100 rows, keys below 12."""
-    from sigmod2018_tpu_torch.storage.relation import (Relation,
-                                                       store_relation as put)
     rng = np.random.default_rng(5)
     paths = []
     for i, n in enumerate((300, 200, 100)):
         cols = [rng.integers(0, 12, n).astype(np.uint64) for _ in range(3)]
         paths.append(str(tmp_path / f"r{i}"))
-        put(Relation(columns=cols), paths[-1])
+        store_relation(Relation(columns=cols), paths[-1])
     return paths
 
 
