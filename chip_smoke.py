@@ -25,6 +25,12 @@ Phases, each of which must pass:
      ascending), zipf-like keys (buckets near the 2,048-slot cap), a
      window of MAX_SLOTS keys in no order, keys over the full u64 range
      with live 2^64-1 keys, and empty windows;
+3b. range expansion: `ops.sort_join.join_emit` with a device total at
+   the TPC-H cells' Q7/Q10 shape (2^23 probe rows, ~4% of the 6,000,000
+   live ones matching once, out_size 2^18) and at a bigdom emit of
+   4,264,621 pairs, exactly against the NumPy expansion computed on the
+   host, with its median time (CUDA events) and the share of the card's
+   memory rate that its bytes (`emit_bytes`) take in that time;
 4. factorized message: one message of engine/factorized.py at 2^21
    padded rows, on an edge of workloads/zipfbig (relation 1 joined with
    itself), held exactly against the NumPy twin's message and timed
@@ -504,6 +510,103 @@ def phase_radix_kernels(dev, card: str, flush: torch.Tensor):
         if rj.LAUNCHES[name] <= before[name]:
             raise AssertionError(f"{name}: the kernel's launch count did "
                                  f"not grow")
+    return out
+
+
+# Phase 3b: the range expansion ops/sort_join.py::join_emit at two serving
+# shapes.  (label, Pp, live probe rows, Pb, share of the live rows that
+# match once, or None, exact total spread at random over the live rows,
+# or None, out_size, or None for the total's size class)
+EMIT_CASES = (
+    # the TPC-H cells' Q7 and Q10 cuts: lineitem (~6,000,000 rows padded
+    # to 2^23) probes one nation's suppliers (one quarter's orders), and
+    # ~4% of its live rows match once
+    ("Q7/Q10 shape", 1 << 23, 6_000_000, 1 << 14, 0.04, None, 1 << 18),
+    # an intermediate join of workloads/bigdom: 2,000,000-row sides
+    # emitting 4,264,621 pairs into their 2^23 class
+    ("bigdom", 1 << 21, 2_000_000, 1 << 21, None, 4_264_621, None),
+)
+
+
+def emit_inputs(Pp: int, live: int, Pb: int, share, total, seed: int = 15):
+    """(perm int32 [Pb], lo int32 [Pp], cnt int64 [Pp]) made with numpy
+    from a seed: pad rows past `live` match nothing; lo is in range where
+    cnt > 0 and 0 elsewhere."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if total is None:
+        cnt = (rng.random(Pp) < share).astype(np.int64)
+        cnt[live:] = 0
+    else:
+        cnt = np.bincount(rng.integers(0, live, total), minlength=Pp)
+    lo = np.where(cnt > 0, rng.integers(0, Pb - cnt + 1), 0)
+    return (rng.permutation(Pb).astype(np.int32), lo.astype(np.int32),
+            cnt.astype(np.int64))
+
+
+def emit_numpy(perm, lo, cnt, out_size: int) -> tuple:
+    """The expansion on the host, row by row in probe order: each row's
+    cnt pairs (perm[lo + k], row), the first out_size kept, 0 past
+    them."""
+    import numpy as np
+
+    rows = np.repeat(np.arange(cnt.shape[0]), cnt)[:out_size]
+    k = np.arange(rows.shape[0]) - (np.cumsum(cnt) - cnt)[rows]
+    bpos = np.zeros(out_size, np.int32)
+    ppos = np.zeros(out_size, np.int32)
+    bpos[:rows.shape[0]] = perm[lo[rows] + k]
+    ppos[:rows.shape[0]] = rows
+    return bpos, ppos
+
+
+def emit_bytes(cnt, out_size: int) -> int:
+    """What an emit must move: lo (int32) and ccum (int64) of each row
+    that owns a kept slot, perm (int32) at each kept slot, and both int32
+    outputs over all out_size slots."""
+    import numpy as np
+
+    starts = np.cumsum(cnt) - cnt
+    owners = int(np.count_nonzero((cnt > 0) & (starts < out_size)))
+    return 12 * owners + 4 * min(int(cnt.sum()), out_size) + 8 * out_size
+
+
+def phase_emit(dev, card: str, flush: torch.Tensor,
+               cases=EMIT_CASES) -> dict:
+    """join_emit at each case's shape with the total on the device (the
+    compiled engine's form), exact against emit_numpy, then {label:
+    median device ms}, each printed with its bytes and their share of the
+    card's memory rate."""
+    import numpy as np
+
+    from sigmod2018_tpu_torch.ops.sort_join import join_emit
+    from sigmod2018_tpu_torch.utils.floors import HBM_BYTES_PER_S
+    from sigmod2018_tpu_torch.utils.padding import size_class
+
+    out = {}
+    for label, Pp, live, Pb, share, total, out_size in cases:
+        perm, lo, cnt = emit_inputs(Pp, live, Pb, share, total)
+        total = int(cnt.sum())
+        out_size = out_size or size_class(total)
+        args = (torch.from_numpy(perm).to(dev), torch.from_numpy(lo).to(dev),
+                torch.from_numpy(np.cumsum(cnt)).to(dev),
+                torch.tensor(total, device=dev))
+        got = join_emit(*args, out_size=out_size)
+        want = emit_numpy(perm, lo, cnt, out_size)
+        for g, w, what in zip(got, want, ("build_pos", "probe_pos")):
+            if not np.array_equal(g.cpu().numpy(), w):
+                raise AssertionError(f"emit [{label}]: {what} differs from "
+                                     f"the NumPy expansion")
+        ms = median_ms(lambda: join_emit(*args, out_size=out_size), flush)
+        nbytes = emit_bytes(cnt, out_size)
+        share_of_rate = nbytes / (ms / 1e3) / HBM_BYTES_PER_S
+        print(f"emit [{label}] Pp={Pp} live={live} Pb={Pb} matched rows="
+              f"{int(np.count_nonzero(cnt))} total={total} out_size="
+              f"{out_size}: exact against the NumPy expansion; {ms:.4f} ms "
+              f"(median, device total); {nbytes} bytes (owners' lo and "
+              f"ccum, kept slots' perm, both outputs), {share_of_rate:.2%} "
+              f"of {HBM_BYTES_PER_S / 1e12:.2f} TB/s ({card})", flush=True)
+        out[label] = ms
     return out
 
 
@@ -1763,6 +1866,7 @@ def main() -> int:
     flush = flush_buffer(dev)  # 64 MB
     k1_err, k1_times = phase_kernel(dev, card, flush)
     radix_kernels = phase_radix_kernels(dev, card, flush)
+    phase_emit(dev, card, flush)
     prepared = generate_workloads()
     message_ms = phase_message(dev, card, flush)
     shutil.rmtree(PREP_CACHE, ignore_errors=True)

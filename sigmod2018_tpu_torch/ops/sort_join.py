@@ -92,23 +92,26 @@ def join_emit(perm: torch.Tensor, lo: torch.Tensor, ccum: torch.Tensor,
     probe_pos the probe input; slots >= total hold 0.  `total` is a host
     int or the probe's 0-d device total: a speculatively sized emit
     (engine/compiled.py) reads nothing back, and when its class is below
-    the total it keeps the first out_size pairs.  Each non-empty
-    probe row scatters its index (+1) at its first output slot (slots
-    strictly increase, so no collisions) and a running max fills every
-    slot with its owning row: O(out_size + Pp)."""
-    dev = ccum.device
+    the total it keeps the first out_size pairs.
+
+    Slot t belongs to the first probe row whose inclusive count sum
+    passes t: a binary search of t in ccum (sorted, since counts are
+    non-negative; a row without matches adds no step, so it is never
+    found).  O(out_size log Pp) reads, and no write to a shared address.
+    The JAX op scatters each row's index at its first slot and fills the
+    slots with a running max instead, because the TPU lowers searchsorted
+    to a sort of Pp + out_size elements.  On the card a searchsorted is a
+    binary search, and that scatter (torch has no drop mode) would send
+    every row without matches to one spare slot, whose same-address
+    atomics serialise."""
     Pp = ccum.shape[0]
-    cnt = torch.diff(ccum, prepend=ccum.new_zeros(1))
-    starts = ccum - cnt
-    owner = torch.zeros(out_size + 1, dtype=torch.int64, device=dev)
-    dest = torch.where((cnt > 0) & (starts < out_size), starts, out_size)
-    owner.scatter_reduce_(0, dest, torch.arange(1, Pp + 1, device=dev),
-                          reduce="amax")
-    i = torch.clamp(torch.cummax(owner[:out_size], 0).values - 1, 0, Pp - 1)
-    t = torch.arange(out_size, device=dev)
+    t = torch.arange(out_size, device=ccum.device)
+    i = torch.clamp(torch.searchsorted(ccum, t, right=True), max=Pp - 1)
+    start = torch.where(i > 0, ccum.index_select(0, torch.clamp(i - 1, min=0)),
+                        0)
     valid = t < (torch.clamp(total, max=out_size)
                  if isinstance(total, torch.Tensor) else min(total, out_size))
-    bidx = torch.where(valid, lo.index_select(0, i) + (t - starts[i]), 0)
+    bidx = torch.where(valid, lo.index_select(0, i) + (t - start), 0)
     build_pos = torch.where(valid, perm.index_select(0, bidx), 0)
     probe_pos = torch.where(valid, i, 0)
     return build_pos.to(torch.int32), probe_pos.to(torch.int32)

@@ -11,9 +11,13 @@ rows by default:
   gather         a[idx], u64 and u32 rows, int64 indices at random and in
                  random 1,024-row blocks: what a gather by a prep-time
                  permutation costs (engine/factorized.py's messages)
-  scatter-add    out.index_add_(0, idx, a) at random indices: the scatter
-                 half of ops/sort_join.py::join_emit's range expansion
-                 (ROADMAP #17 weighs it against a searchsorted expansion)
+  scatter-add    out.index_add_(0, idx, a) at random indices, distinct
+                 ones: the rate a scatter reaches when no two rows share
+                 an address.  ops/sort_join.py::join_emit no longer
+                 scatters: its rows without matches all aimed at one
+                 spare slot, whose atomics serialised, so each output
+                 slot now finds its row by a searchsorted (the line
+                 below), which writes nothing shared
   sort x1        torch.sort of the keys (it returns the permutation too)
   sort +2        the sort, then two payloads carried by gathers through
                  its permutation (how ops/u64.py::sort_u64 callers carry

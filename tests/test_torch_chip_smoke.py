@@ -498,3 +498,60 @@ def test_phase_11_runs_on_the_cpu(tmp_path, monkeypatch, capsys):
     assert out.count("thresholds median [zipf ") == 2
     assert out.count("thresholds pairs [zipf]: ") == 1
     assert len(list(tmp_path.glob("threshold-prep-*-zipf"))) == 4
+
+
+def test_emit_bytes_by_hand():
+    import numpy as np
+
+    # starts 0, 0, 2, 2, 5: rows 1 and 3 own kept slots, row 4 starts past
+    # out_size 4; 4 of the 6 pairs kept
+    cnt = np.array([0, 2, 0, 3, 1])
+    assert cs.emit_bytes(cnt, 4) == 12 * 2 + 4 * 4 + 8 * 4
+
+
+def test_emit_cases_are_the_shapes_they_name():
+    import numpy as np
+
+    from sigmod2018_tpu_torch.utils.padding import size_class
+
+    (_, Pp, live, Pb, share, _, out_size), (_, bPp, blive, bPb, _, btotal,
+                                            _) = cs.EMIT_CASES
+    perm, lo, cnt = cs.emit_inputs(Pp, live, Pb, share, None)
+    assert cnt[live:].sum() == 0 and int(cnt.max()) == 1
+    assert 0.035 * live < cnt.sum() <= out_size  # ~4% matched, all kept
+    assert sorted(perm) == list(range(Pb))
+    assert (lo[cnt > 0] + cnt[cnt > 0] <= Pb).all()
+    perm, lo, cnt = cs.emit_inputs(bPp, blive, bPb, None, btotal)
+    assert cnt.sum() == btotal == 4_264_621 and cnt[blive:].sum() == 0
+    assert size_class(btotal) == 1 << 23
+    assert (lo + cnt <= bPb).all() and lo.dtype == np.int32
+
+
+def test_phase_emit_on_the_cpu(capsys):
+    """Phase 3b at small shapes on the CPU: join_emit equals the NumPy
+    expansion (the phase raises otherwise), a total past out_size
+    included."""
+    cases = (("mostly dead", 4096, 3000, 256, 0.04, None, None),
+             ("spread", 2048, 2000, 2048, None, 4300, None),
+             ("truncated", 1024, 1000, 512, None, 3000, 1024))
+    dev = torch.device("cpu")
+    times = cs.phase_emit(dev, "cpu", cs.flush_buffer(dev), cases)
+    assert set(times) == {"mostly dead", "spread", "truncated"}
+    out = capsys.readouterr().out
+    assert out.count("exact against the NumPy expansion") == 3
+
+
+def test_phase_emit_fails_on_a_wrong_expansion(monkeypatch):
+    from sigmod2018_tpu_torch.ops import sort_join
+
+    real = sort_join.join_emit
+
+    def shifted(*args, out_size):
+        b, p = real(*args, out_size=out_size)
+        return b, torch.roll(p, 1)
+
+    monkeypatch.setattr(sort_join, "join_emit", shifted)
+    dev = torch.device("cpu")
+    with pytest.raises(AssertionError, match="probe_pos differs"):
+        cs.phase_emit(dev, "cpu", cs.flush_buffer(dev),
+                      (("spread", 2048, 2000, 2048, None, 4300, None),))

@@ -180,6 +180,67 @@ def test_join_emit_device_total(out_size):
         np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
 
 
+def _emit_case(name):
+    """(perm, lo, cnt, out_size) of one range-expansion shape, made with
+    numpy from a seed; lo is in range only where cnt > 0 (elsewhere it is
+    whatever the probe left there)."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    Pb = 1024
+    if name == "mostly dead with pads":
+        # the TPC-H Q7/Q10 cuts: ~4% of the live probe rows match, and
+        # the pad rows past the 3,000 live ones add none
+        Pp, live = 4096, 3000
+        cnt = np.where(rng.random(Pp) < 0.04, rng.integers(1, 9, Pp), 0)
+        cnt[live:] = 0
+    elif name == "one row owns most slots":
+        Pp = 512
+        cnt = rng.integers(0, 3, Pp)
+        cnt[rng.integers(Pp)] = 900
+    elif name == "truncated, device total":
+        Pp = 256
+        cnt = rng.integers(0, 12, Pp)
+    elif name == "one probe row":
+        Pp = 1
+        cnt = np.array([7])
+    else:  # total 0
+        Pp = 300
+        cnt = np.zeros(Pp, np.int64)
+    lo = np.where(cnt > 0, rng.integers(0, Pb - cnt + 1),
+                  rng.integers(0, Pb, Pp))
+    total = int(cnt.sum())
+    out_size = 256 if name == "truncated, device total" else \
+        size_class(max(total, 1))
+    return (rng.permutation(Pb).astype(np.int32), lo.astype(np.int32),
+            cnt, out_size)
+
+
+@pytest.mark.parametrize("total_form", ["host int", "0-d device"])
+@pytest.mark.parametrize("name", ["mostly dead with pads",
+                                  "one row owns most slots",
+                                  "truncated, device total", "one probe row",
+                                  "total 0"])
+def test_join_emit_expansion_shapes(name, total_form):
+    """The range expansion against the JAX op, bit for bit, on the shapes
+    where its form matters: rows without matches in the majority, one row
+    owning most slots, out_size below the total, a single probe row, no
+    match at all."""
+    perm, lo, cnt, out_size = _emit_case(name)
+    ccum = np.cumsum(cnt)
+    total = int(ccum[-1])
+    if name == "truncated, device total":
+        assert total > out_size
+    jb, jp = jops.join_emit(jnp.asarray(perm), jnp.asarray(lo),
+                            jnp.asarray(ccum, jnp.int32),
+                            jnp.asarray(total, jnp.int64), out_size=out_size)
+    ttotal = torch.tensor(total) if total_form == "0-d device" else total
+    tb, tp = tops.join_emit(torch.from_numpy(perm), torch.from_numpy(lo),
+                            torch.from_numpy(ccum.astype(np.int64)), ttotal,
+                            out_size=out_size)
+    assert tb.dtype == tp.dtype == torch.int32
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+
+
 def _key_table(keys):
     u = int(max(keys))
     cumcnt = np.zeros(u + 3, dtype=np.int32)
